@@ -1,4 +1,4 @@
-"""Solve a 2-D Poisson problem three ways on one chip.
+"""Solve a 2-D Poisson problem three ways on one device.
 
     python examples/poisson_solve.py
 """
@@ -20,7 +20,7 @@ def main():
     nx = 128
     rng = np.random.default_rng(0)
 
-    # 1. variable-coefficient grid stencil (Pallas kernel on TPU)
+    # 1. variable-coefficient grid stencil
     A = stencil.poisson_2d(nx, nx, dtype=np.float32)
     b = jnp.asarray(rng.standard_normal(nx * nx), jnp.float32)
     (sol, info), secs = profiling.timed_solve(
@@ -30,12 +30,12 @@ def main():
     print(f"grid CG:   {info.numsteps} iters, {secs*1e3:.1f} ms, "
           f"final resnorm {float(info.resnorms[-1]):.3e}")
 
-    # 2. constant-coefficient stencil with the fused-CG driver
+    # 2. constant-coefficient stencil with the grid-vector CG driver
     Ac = stencil.poisson_2d_const(nx, nx, dtype=np.float32)
     (sol, info), secs = profiling.timed_solve(
-        krylov.cg_stencil, Ac, b, tol=1e-4, maxiter=1500, fused=True
+        krylov.cg_stencil, Ac, b, tol=1e-4, maxiter=1500
     )
-    print(f"fused CG:  {info.numsteps} iters, {secs*1e3:.1f} ms")
+    print(f"stencil CG: {info.numsteps} iters, {secs*1e3:.1f} ms")
 
     # 3. restarted GMRES on the same system
     (sol, info), secs = profiling.timed_solve(

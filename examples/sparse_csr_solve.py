@@ -1,16 +1,14 @@
-"""General-sparsity solves: scipy CSR in, Pallas PET kernel underneath.
+"""General-sparsity solves: scipy CSR in, device CSR underneath.
 
-Demonstrates the three ways a user reaches the TPU general-sparsity path:
+Demonstrates the three ways a user reaches the general-sparsity path:
 
-1. implicitly — pass a scipy sparse matrix to any solver; on an f32 TPU
-   backend, large scattered matrices auto-route to the PET kernel,
-2. explicitly — build a :class:`PETOperator` once and reuse it (amortizes
-   the host-side preprocessing across many solves),
-3. distributed — :func:`partition_pet` + ``sharded_solve`` run the same
-   kernel on row slabs over a device mesh.
+1. implicitly — pass a scipy sparse matrix to any solver; it is converted
+   to a device :class:`CSROperator` (cached per matrix),
+2. explicitly — build a :class:`CSROperator` once and reuse it,
+3. distributed — ``sharded_solve`` partitions the same matrix into row
+   slabs over a device mesh (halo or all-gather exchange).
 
-Run: ``python examples/sparse_csr_solve.py`` (any backend; the kernel
-runs compiled on TPU and through the Pallas interpreter elsewhere).
+Run: ``python examples/sparse_csr_solve.py`` (any backend).
 """
 
 import os
@@ -25,7 +23,7 @@ import jax
 import jax.numpy as jnp
 
 import krylov_tpu as krylov
-from krylov_tpu.ops.pallas_spmv import PETOperator
+from krylov_tpu.ops import CSROperator
 
 
 def irregular_spd(n, seed=0):
@@ -55,12 +53,12 @@ def main():
     print(f"cg(scipy csr): success={info.success} steps={info.numsteps} "
           f"|r|={r:.2e}")
 
-    # 2. explicit PET operator: one-time preprocessing, then reuse
-    op = PETOperator.from_scipy(A)
-    print(f"PET fill={op.fill:.3f} nnz={op.nnz}")
+    # 2. explicit CSR operator: one host->device conversion, then reuse
+    op = CSROperator.from_scipy(A)
+    print(f"CSR nnz={op.nnz}")
     for solver in (krylov.cg, krylov.bicgstab):
         sol, info = solver(op, b, tol=1e-4, maxiter=300)
-        print(f"{solver.__name__}(PETOperator): success={info.success} "
+        print(f"{solver.__name__}(CSROperator): success={info.success} "
               f"steps={info.numsteps}")
 
     # GS/SOR smoothers also run on large general sparsity
@@ -73,12 +71,11 @@ def main():
     if jax.device_count() > 1:
         from krylov_tpu import parallel
 
-        part = parallel.partition_pet(A, jax.device_count())
         sol, info = parallel.sharded_solve(
-            krylov.cg, part, b, mesh=parallel.make_mesh(),
+            krylov.cg, A, b, mesh=parallel.make_mesh(),
             tol=1e-4, maxiter=200,
         )
-        print(f"sharded cg(PET partition, {jax.device_count()} devices): "
+        print(f"sharded cg(CSR row slabs, {jax.device_count()} devices): "
               f"success={info.success} steps={info.numsteps}")
 
 

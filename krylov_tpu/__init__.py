@@ -1,13 +1,13 @@
-"""krylov_tpu — a TPU-native Krylov-subspace solver framework.
+"""krylov_tpu — a JAX-native Krylov-subspace solver framework.
 
-Built from scratch on JAX/XLA/Pallas: every solver is a functional recurrence
+Built from scratch on JAX/XLA: every solver is a functional recurrence
 on a state pytree that runs either as a float64 host loop (numerical parity
 mode) or as a single compiled ``lax.while_loop`` on device; sparse operators
-are device-resident pytrees with Pallas SpMV kernels; distribution is
+are device-resident pytrees whose matvecs XLA compiles; distribution is
 row-partitioning over a ``jax.sharding.Mesh`` with psum inner products.
 
 Public surface mirrors the reference library (reference:
-src/krylov/__init__.py:21-49) plus the TPU-native extensions under
+src/krylov/__init__.py:21-49) plus the device-native extensions under
 ``krylov_tpu.ops`` and ``krylov_tpu.parallel``.
 """
 

@@ -176,14 +176,13 @@ def _run_eager(state, method: Method, *, tol, atol, maxiter, callback):
 
 def _run_while(state0, method: Method, *, tol, atol, maxiter,
                callback=None):
-    # NESTED loop structure, for TPU in-place buffer aliasing: the INNER
+    # NESTED loop structure, for in-place buffer aliasing: the INNER
     # ``lax.while_loop`` body is nothing but ``step`` + a scalar history
     # write — no ``lax.cond`` ever touches the solver state, so XLA
     # aliases the state's large buffers in place across iterations.  A
     # single body-level ``lax.cond`` around the step (the previous
-    # structure) gave every large array a second consumer and cost a
-    # measured ~320 us/iter in buffer copies at 16.7M rows (~27% of the
-    # fused stencil-CG iteration).  The OUTER loop runs once per
+    # structure) gave every large array a second consumer, and with it
+    # a copy of every large buffer per iteration.  The OUTER loop runs once per
     # convergence EVENT (recurrence residual dips below the criterion,
     # early success, maxiter): it performs the explicit-residual
     # double-check — its ``lax.cond`` executes O(1) times per solve, not

@@ -14,6 +14,8 @@ see :mod:`krylov_tpu.parallel`.
 import jax
 import jax.numpy as jnp
 
+from . import _precision as prec
+
 
 def get_default_inner(b_shape):
     """Return the Euclidean inner product matching the RHS shape.
@@ -24,12 +26,12 @@ def get_default_inner(b_shape):
     if len(b_shape) == 1:
 
         def inner_dot(x, y):
-            return jnp.dot(jnp.conj(x), y)
+            return prec.dot(jnp.conj(x), y)
 
         return inner_dot
 
     def inner_einsum(x, y):
-        return jnp.einsum("i...,i...->...", jnp.conj(x), y)
+        return prec.einsum("i...,i...->...", jnp.conj(x), y)
 
     return inner_einsum
 

@@ -7,7 +7,7 @@ operators.  Capability parity with the reference operator protocol
 * every concrete operator here is a **registered pytree**, so operators flow
   through ``jit`` / ``lax.while_loop`` / ``shard_map`` as ordinary arguments —
   this is what lets one solver implementation run eagerly on host *and*
-  fully compiled on a TPU mesh;
+  fully compiled on one device or a device mesh;
 * ``rmatvec`` (adjoint matvec, needed by BiCG/QMR/CGNE/CGNR) is provided
   functionally instead of via cached transposed copies.
 """
@@ -18,6 +18,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.tree_util import register_pytree_node_class
+
+from . import _precision as prec
 
 
 class LinearOperator(Protocol):
@@ -84,7 +86,7 @@ class Product:
 class MatrixOperator:
     """Dense-matrix operator backed by a device array.
 
-    The matvec is an XLA GEMM/GEMV (MXU on TPU); the adjoint matvec is
+    The matvec is an XLA GEMM/GEMV at full f32 precision; the adjoint is
     computed as ``conj(A.T @ conj(x))`` with no cached adjoint copy
     (capability parity: reference src/krylov/_helpers.py:51-80).
     """
@@ -101,13 +103,13 @@ class MatrixOperator:
         return self.a.shape
 
     def __matmul__(self, x):
-        return self.a @ x
+        return prec.matmul(self.a, x)
 
     matvec = __matmul__
 
     def rmatvec(self, x):
         """y = A^H @ x."""
-        return jnp.conj(self.a.T @ jnp.conj(x))
+        return jnp.conj(prec.matmul(self.a.T, jnp.conj(x)))
 
     def diagonal(self):
         return jnp.diagonal(self.a)
@@ -223,27 +225,9 @@ class CallableOperatorWrapper:
         return self._obj.diagonal()
 
 
-def _pet_eligible_matrix(A):
-    """PET handles large REAL matrices only (it is f32-only: routing a
-    complex matrix would silently drop the imaginary parts)."""
-    return A.nnz >= (1 << 16) and not np.iscomplexobj(
-        getattr(A, "data", np.zeros(0))
-    )
-
-
-def _prefer_pet_for_csr(A):
-    """Eligible matrices on a (f32) TPU backend go to the Pallas PET
-    kernel; f64 parity runs keep the portable CSR path."""
-    return (
-        jax.default_backend() == "tpu"
-        and not jax.config.jax_enable_x64
-        and _pet_eligible_matrix(A)
-    )
-
-
-# auto-routed operators (PET / BSR conversions) are cached per scipy object:
-# as_operator runs on every solve call and both builds are O(nnz) host-side
-# passes.  The cache key includes a content fingerprint so in-place mutation
+# auto-routed operators (CSR / BSR conversions) are cached per scipy object:
+# as_operator runs on every solve call and each build is an O(nnz) host-side
+# pass.  The cache key includes a content fingerprint so in-place mutation
 # of the scipy matrix (A.data *= ... in a time-stepping re-solve loop)
 # invalidates the cached operator instead of silently serving stale values.
 _ROUTE_CACHE = {}
@@ -312,7 +296,8 @@ def as_operator(A):
     * jnp/np ndarrays -> :class:`MatrixOperator` (device GEMV + functional
       adjoint),
     * scipy sparse matrices -> :class:`krylov_tpu.ops.CSROperator` (on-device
-      CSR with TPU SpMV kernels),
+      CSR), or :class:`krylov_tpu.ops.BSROperator` when the matrix is
+      block-structured,
     * objects already exposing ``rmatvec`` are used as-is,
     * any other object with ``__matmul__`` is wrapped.
 
@@ -343,24 +328,8 @@ def _route_scipy_sparse(A):
 
     bs = detect_blocksize(A)
     if bs is not None:
-        # block-structured: route to the MXU SpMM path
+        # block-structured: dense-block SpMM streams no per-entry indices
         return BSROperator.from_scipy(A, blocksize=bs)
-    if _prefer_pet_for_csr(A):
-        # on TPU the XLA gather+segment_sum CSR path is ~0.06 Gnnz/s;
-        # the Pallas page-ELL kernel is ~300x faster (f32).  The adjoint
-        # PET is built lazily on first rmatvec (cg/gmres/chebyshev never
-        # need it; building it here would double the O(nnz) cost).
-        from .ops.pallas_spmv import PETOperator
-
-        # reorder="auto": badly ordered matrices (sampled fill < 0.15 and
-        # RCM at least doubles it) are built on their bandwidth-reduced
-        # symmetric permutation — measured up to 147x fewer streamed
-        # bytes on scrambled meshes, at two hidden O(N) gathers per
-        # matvec; well-ordered matrices are untouched.  Square only (the
-        # permutation is symmetric); rectangular keeps user order.
-        reorder = "auto" if A.shape[0] == A.shape[1] else None
-        return PETOperator.from_scipy(A, with_rmatvec="lazy",
-                                      reorder=reorder)
     return CSROperator.from_scipy(A)
 
 

@@ -20,8 +20,8 @@ solvers inline over fixed-shape buffers inside ``lax.while_loop``
 host-side shells around those steps for the eager / parity interface, where
 bases may grow as Python lists.  Householder reflectors are kept as
 full-length padded vectors so every application is a whole-vector
-elementwise op (no suffix slicing) -- the vmappable formulation the TPU
-favors.
+elementwise op (no suffix slicing) -- the vmappable formulation a
+compiled loop favors.
 
 Invariant-subspace semantics match the reference: the breakdown flag is
 raised when the new subdiagonal entry falls below 1e-14, and iterating past
@@ -35,6 +35,7 @@ from ._inner import get_default_inner
 from ._operators import Identity, as_operator
 from .errors import ArgumentError
 from .householder import Householder
+from . import _precision as prec
 
 _BREAKDOWN_TOL = 1.0e-14
 
@@ -79,7 +80,7 @@ def cgs_sweep(inner, V, P, w, coeffs):
     All projection coefficients are measured against the SAME incoming
     ``w`` (unlike :func:`mgs_sweep`, which updates ``w`` between
     projections), so the whole sweep is two batched contractions: one
-    basis-sized inner product and one basis combination.  On TPU meshes
+    basis-sized inner product and one basis combination.  On device meshes
     this is the reduction-batching orthogonalization: the compiled GMRES
     path evaluates it as a single Gram matvec — ONE ``psum`` per sweep
     when sharded, against MGS's k+1 sequential allreduces.  A single pass
@@ -121,8 +122,8 @@ def _padded_reflector(w, k):
 
 
 def _apply_reflector(u, beta, x):
-    return x - beta * u * jnp.vdot(u, x) if x.ndim == 1 else (
-        x - beta * u * jnp.tensordot(jnp.conj(u), x, axes=(0, 0))
+    return x - beta * u * prec.vdot(u, x) if x.ndim == 1 else (
+        x - beta * u * prec.tensordot(jnp.conj(u), x, axes=(0, 0))
     )
 
 
@@ -432,7 +433,7 @@ def arnoldi_res(A, V, H, inner=None):
     """
     invariant = H.shape[0] == H.shape[1]
     V1 = V if invariant else V[:, :-1]
-    res = A @ V1 - jnp.dot(V, H)
+    res = A @ V1 - prec.dot(V, H)
     if inner is None:
         inner = get_default_inner(res.shape)
     return jnp.sqrt(inner(res, res))

@@ -1,11 +1,10 @@
-"""Block-Jacobi preconditioner: batched dense block inverses on the MXU.
+"""Block-Jacobi preconditioner: batched dense block inverses.
 
 Extension beyond the reference (which ships no preconditioners — ``M`` is
-always user-supplied, reference: src/krylov/cg.py:33-36).  The TPU-natural
-member of the preconditioner suite: where pointwise Jacobi is one VPU
-multiply and AMG is a whole cycle, block Jacobi is ONE batched matmul —
-``z_b = inv(A_bb) r_b`` for every diagonal block at once, an
-``(nb, k, k) @ (nb, k, rhs)`` einsum the MXU eats directly.  Zero
+always user-supplied, reference: src/krylov/cg.py:33-36).  Where pointwise
+Jacobi is one elementwise multiply and AMG is a whole cycle, block Jacobi
+is ONE batched matmul — ``z_b = inv(A_bb) r_b`` for every diagonal block
+at once, an ``(nb, k, k) @ (nb, k, rhs)`` einsum at full f32 precision.  Zero
 communication when sharded (blocks never cross shard boundaries), so a
 sharded application costs nothing but local FLOPs.
 
@@ -28,6 +27,8 @@ import numpy as np
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 from jax.tree_util import register_pytree_node_class
+
+from . import _precision as prec
 
 __all__ = ["BlockJacobiPreconditioner", "partition_block_jacobi"]
 
@@ -61,7 +62,7 @@ def _block_diag_inverses(A, block, dtype=None):
 
 
 def _apply_blocks(inv, r):
-    """One batched MXU matmul: ``z_b = inv_b r_b`` per block (``r`` may be
+    """One batched matmul: ``z_b = inv_b r_b`` per block (``r`` may be
     shorter than the block grid; the tail is zero-padded and sliced off)."""
     nb, k, _ = inv.shape
     pad = nb * k - r.shape[0]
@@ -73,14 +74,14 @@ def _apply_blocks(inv, r):
         else r
     )
     rb = rp.reshape((nb, k) + r.shape[1:])
-    z = jnp.einsum("bij,bj...->bi...", inv, rb)
+    z = prec.einsum("bij,bj...->bi...", inv, rb)
     z = z.reshape((nb * k,) + r.shape[1:])
     return z[: r.shape[0]]
 
 
 @register_pytree_node_class
 class BlockJacobiPreconditioner:
-    """``z = M @ r`` solves each diagonal block exactly (batched MXU
+    """``z = M @ r`` solves each diagonal block exactly (one batched
     matmul).  Build with :meth:`from_scipy`; SPD for SPD input, so it is a
     valid ``M`` of cg/minres in either backend."""
 

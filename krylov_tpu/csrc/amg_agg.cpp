@@ -14,7 +14,7 @@
 //
 // The reference library has no native code at all (SURVEY.md §2.2) and
 // no preconditioners (reference: src/krylov/cg.py:33-36 takes M from
-// the user); this is build-side runtime of the TPU framework.
+// the user); this is host-side setup runtime of the framework.
 //
 // Compiled on demand by krylov_tpu/ops/_native.py with
 //   g++ -O3 -ffp-contract=off -shared -fPIC amg_agg.cpp -o _amg_agg.so

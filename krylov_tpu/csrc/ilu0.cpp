@@ -2,7 +2,7 @@
 // krylov_tpu/ops/_native.py; the numpy implementations in
 // krylov_tpu/ilu.py and ops/triangular.py are the fallback and ground
 // truth).  The reference has no native code at all (SURVEY.md 2.2); this
-// is setup-side runtime, not TPU compute.
+// is setup-side runtime, not device compute.
 //
 // ilu0_factor: in-place IKJ ILU(0) on the exact CSR pattern (sorted
 // indices, no pivoting).  O(nnz * row_len) with an O(n) column-position

@@ -30,19 +30,8 @@ leaves are the parameters (``params``/``make_op`` optional).
 from functools import partial
 
 import jax
-import jax.numpy as jnp
 
 from .solvers.cg import cg
-
-
-def _zero_cotangent(a):
-    """A declined cotangent: zeros for inexact leaves, float0 for the
-    integer/bool leaves custom_vjp requires symbolic zeros for."""
-    import numpy as _np
-
-    if jnp.issubdtype(jnp.asarray(a).dtype, jnp.inexact):
-        return jnp.zeros_like(a)
-    return _np.zeros(jnp.shape(a), jax.dtypes.float0)
 
 
 def solve(
@@ -67,14 +56,7 @@ def solve(
 
     Returns ``x`` only (differentiable); use the plain solver for ``Info``.
     """
-    params_differentiable = True
     if params is None or make_op is None:
-        if hasattr(A, "ensure_adjoint"):
-            # the backward pass solves with A^H via rmatvec on the
-            # RECONSTRUCTED operator; a lazy adjoint must be built
-            # host-side before the pytree boundary drops the handle
-            A.ensure_adjoint()
-        params_differentiable = getattr(A, "params_differentiable", True)
         params = jax.tree_util.tree_leaves(A)
         treedef = jax.tree_util.tree_structure(A)
 
@@ -125,14 +107,6 @@ def solve(
 
         _, adj_info = adjoint_solver(A_adj, g, **solve_kw)
         lam = adj_info.xk
-
-        if not params_differentiable:
-            # operators whose matvec is a non-differentiable kernel (e.g.
-            # the Pallas PET path) and whose leaves are FORMAT arrays, not
-            # matrix entries: parameter cotangents are declined (zeros /
-            # float0), gradients flow through b only
-            dparams = tuple(_zero_cotangent(p) for p in params)
-            return dparams, lam
 
         # d/dparams: vjp of params -> A(params) @ x at cotangent -lambda
         def apply_params(*p):

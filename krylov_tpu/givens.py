@@ -15,6 +15,8 @@ once and runs on-device inside compiled solver loops (no LAPACK FFI crossing).
 
 import jax.numpy as jnp
 
+from . import _precision as prec
+
 
 def lartg(f, g):
     """Elementwise robust Givens generation.
@@ -100,4 +102,4 @@ def givens(X):
 
 def apply_givens(G, v):
     """``G @ v`` for stacked rotations: G.shape == (m, n, ...), v.shape == (n, ...)."""
-    return jnp.einsum("ij...,j...->i...", G, v)
+    return prec.einsum("ij...,j...->i...", G, v)

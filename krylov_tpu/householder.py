@@ -11,6 +11,7 @@ compiled (traced) code as well as eagerly.
 import jax.numpy as jnp
 
 from ._inner import get_default_inner
+from . import _precision as prec
 
 
 class Householder:
@@ -78,5 +79,5 @@ class Householder:
         eye = jnp.zeros([n, n] + list(self.v.shape[1:]), dtype=self.v.dtype)
         idx = jnp.arange(n)
         eye = eye.at[idx, idx].set(1.0)
-        vvH = jnp.einsum("i...,j...->ij...", self.v, jnp.conj(self.v))
+        vvH = prec.einsum("i...,j...->ij...", self.v, jnp.conj(self.v))
         return eye - self.beta * vvH

@@ -9,7 +9,7 @@ exactly — the classical IC(0) equivalence — so it is ALSO a valid SPD
 ``M`` of cg/minres (tested to machine-precision symmetry); ``method=
 "ilut"`` pivots and is nonsymmetric-only.
 
-Split of labor, TPU-first:
+Split of labor:
 
 * **Setup** (once, host): ``method="ilu0"`` (default) factors on the
   EXACT sparsity pattern of ``A`` with no pivoting — the factor's
@@ -157,7 +157,7 @@ class ILUPreconditioner:
         one matvec.  ``method="ilut"``: SuperLU ILUTP; ``drop_tol`` /
         ``fill_factor`` are its knobs (smaller drop_tol / larger
         fill_factor = stronger, denser, DEEPER factors).  ``dtype`` casts
-        the device factors (pass ``np.float32`` on TPU).  ``max_levels``
+        the device factors (``np.float32`` halves the sweep traffic).  ``max_levels``
         bounds the factors' dependency-level count."""
         import scipy.sparse
 

@@ -9,10 +9,10 @@ Poisson model problem drop from O(n) to O(10), which makes it the largest
 single time-to-tolerance lever in this library — far beyond kernel-level
 tuning.
 
-TPU mapping: every level's operator is a half-resolution
-:class:`~krylov_tpu.ops.stencil.ConstStencilOperator` (the Pallas
-speed-of-light matvec); restriction/prolongation are reshape-sums /
-repeats that XLA fuses into trivially bandwidth-bound ops.  The level
+Device mapping: every level's operator is a half-resolution
+:class:`~krylov_tpu.ops.stencil.ConstStencilOperator` (a coefficient-free
+fused stencil); restriction/prolongation are reshape-sums / repeats that
+XLA fuses into bandwidth-bound elementwise passes.  The level
 count is static, so the whole V-cycle inlines into the compiled
 ``while_loop`` solver with zero host round-trips.
 
@@ -35,6 +35,7 @@ from jax import lax
 from jax.tree_util import register_pytree_node_class
 
 from .ops.stencil import ConstStencilOperator
+from . import _precision as prec
 
 
 def _halve_all(shape_nd):
@@ -428,74 +429,10 @@ class MultigridPreconditioner:
         w = self._winv[level]
         return w.reshape(w.shape + (1,) * (r.ndim - w.ndim)) * r
 
-    def _fused_sweep_kind(self, level, x_nd):
-        """Route this level's smoothing/residual through a fused pallas
-        sweep kernel (one pass instead of matvec + XLA elementwise —
-        measured ~31% off the whole 4096^2 const V(2,2) cycle):
-        ``"const"`` for const-coefficient levels (scalar Jacobi weight),
-        ``"var"`` for Galerkin (GridStencilOperator) levels streaming
-        the coefficient planes and a per-point weight, ``None`` for the
-        generic composition (CPU/f64 parity mode, blocked-RHS tails)."""
-        from .ops import pallas_stencil
-        from .ops.stencil import GridStencilOperator
-
-        op = self._ops[level]
-        nd = len(self._nd_shapes[level])
-        if x_nd.ndim != nd:
-            return None  # blocked RHS tail: generic path
-        if isinstance(op, ConstStencilOperator):
-            if jnp.ndim(self._winv[level]) != 0:
-                return None
-            M, ny = op.vector_shape
-            if pallas_stencil.supports(
-                x_nd.dtype, M, ny, tuple(b[0] for b in op.kernel_bands)
-            ):
-                return "const"
-            return None
-        if isinstance(op, GridStencilOperator):
-            M, ny = op.vector_shape
-            if jnp.shape(self._winv[level]) == (M, ny) and (
-                pallas_stencil.supports(x_nd.dtype, M, ny, op.row_offsets)
-            ):
-                return "var"
-        return None
-
-    def _fused_sweep(self, level, z2, r2, kind, update=True):
-        from .ops import pallas_stencil
-
-        op = self._ops[level]
-        if kind == "const":
-            return pallas_stencil.jacobi_sweep_const(
-                self._winv[level] if update else 0.0, z2, r2,
-                op.kernel_bands, update=update,
-            )
-        return pallas_stencil.jacobi_sweep_var(
-            self._winv[level] if update else 0.0, z2, r2, op.coeffs2d,
-            op.row_offsets, op.col_offsets, update=update,
-        )
-
     def _smooth(self, level, z, r, iters):
-        kind = self._fused_sweep_kind(level, z) if iters > 0 else None
-        if kind is not None:
-            g = self._ops[level].vector_shape
-            z2, r2 = z.reshape(g), r.reshape(g)
-            for _ in range(iters):
-                z2 = self._fused_sweep(level, z2, r2, kind)
-            return z2.reshape(z.shape)
         for _ in range(iters):
             z = z + self._wmul(level, r - self._apply(level, z))
         return z
-
-    def _residual(self, level, z, r):
-        """``r - A z`` — fused single pass where a sweep kernel applies."""
-        kind = self._fused_sweep_kind(level, z)
-        if kind is not None:
-            g = self._ops[level].vector_shape
-            d2 = self._fused_sweep(
-                level, z.reshape(g), r.reshape(g), kind, update=False
-            )
-            return d2.reshape(z.shape)
-        return r - self._apply(level, z)
 
     def _apply(self, level, x_nd):
         # op works on collapsed (M, ny)(+tail); x_nd is shape_nd(+tail)
@@ -515,14 +452,14 @@ class MultigridPreconditioner:
                 for s in sh:
                     nc *= s
                 r2 = r.reshape((nc,) + r.shape[len(sh):])
-                z2 = jnp.tensordot(self._coarse_inv, r2, axes=1)
+                z2 = prec.tensordot(self._coarse_inv, r2, axes=1)
                 return z2.reshape(r.shape)
             z = jnp.zeros_like(r)
             return self._smooth(level, z, r, self.coarse_iters)
         nd = len(self._nd_shapes[level])
         z = self._wmul(level, r)  # first sweep from zero, no matvec
         z = self._smooth(level, z, r, self.smooth - 1)
-        d = self._residual(level, z, r)
+        d = r - self._apply(level, z)
         e = self._vcycle(level + 1, self._restrict(d, nd))
         z = z + self._prolong(e, nd)
         return self._smooth(level, z, r, self.smooth)
@@ -568,12 +505,12 @@ class ShardedMultigridPreconditioner:
     """Fully distributed geometric V-cycle over a row-sharded constant
     stencil (built inside ``shard_map`` by :func:`multigrid_factory`).
 
-    TPU mapping per level:
+    Device mapping per level:
 
     * **smoothing / residual** — the level's matvec is a
       :class:`~krylov_tpu.parallel.grid.ShardedConstStencilOperator`
-      (the Pallas/XLA const-stencil kernel on the local slab + one halo
-      ``ppermute`` pair over ICI), so every Jacobi sweep costs exactly
+      (the fused const-stencil expression on the local slab + one halo
+      ``ppermute`` pair between neighbor devices), so every Jacobi sweep costs exactly
       one neighbor exchange and zero allreduces;
     * **restriction / prolongation** — order-2 multilinear transfer
       (:func:`_lin_prolong_axis`); along the sharded axis each shard
@@ -586,7 +523,7 @@ class ShardedMultigridPreconditioner:
       redundantly runs the same single-device
       :class:`MultigridPreconditioner` V-cycle on the global coarse
       problem, then slices out its rows — replicated compute instead of
-      a serial bottleneck, the standard TPU trade.
+      a serial bottleneck.
 
     Unlike the shard-local (block-Jacobi / additive-Schwarz) variant,
     the cycle couples shards at every level, so preconditioned iteration
@@ -909,7 +846,7 @@ class ShardedGalerkinMultigrid:
         if last and self._tail_inv is not None:
             sh = r.shape
             nc = sh[0] * sh[1]
-            z2 = jnp.tensordot(
+            z2 = prec.tensordot(
                 self._tail_inv, r.reshape((nc,) + sh[2:]), axes=1
             )
             return z2.reshape(sh)

@@ -1,26 +1,26 @@
 """On-demand native (C++) helpers, with graceful numpy fallback.
 
 The reference is pure Python end-to-end (SURVEY.md §2.2: zero first-party
-native code); here the host-side runtime around the TPU kernels is native
-where it pays.  Currently: the PET builder
-(:func:`krylov_tpu.ops.pallas_spmv.build_pet`'s sort/schedule/scatter
-passes), ~10x the numpy path on large matrices.
+native code); here the host-side setup passes are native where it pays:
+AMG pairwise aggregation (``amg_agg.cpp``), the AMG Galerkin triple
+product (``amg_rap.cpp``) and the ILU(0) factorization / triangular level
+schedule (``ilu0.cpp``).
 
-The shared object is compiled once per machine with ``g++ -O3`` into the
-user cache dir and loaded via ctypes (no build-system dependency, no
-pybind11).  Every native path has the numpy implementation as fallback
-and ground truth; set ``KRYLOV_TPU_NO_NATIVE=1`` to disable natives.
+Each shared object is compiled once per machine with ``g++ -O3`` from the
+committed source into the user cache dir and loaded via ctypes (no
+build-system dependency, no pybind11).  Every native path has the numpy
+implementation as fallback and ground truth; set ``KRYLOV_TPU_NO_NATIVE=1``
+to disable natives.  :func:`status` reports which route each helper took.
 """
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import sys
 import tempfile
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
-_lib = None
-_tried = False
 
 
 def _cache_dir():
@@ -32,142 +32,34 @@ def _cache_dir():
     return d
 
 
-class _PetOut(ctypes.Structure):
-    _fields_ = [
-        ("nchunks", ctypes.c_int64),
-        ("lc", ctypes.c_int64),
-        ("nnz", ctypes.c_int64),
-        ("fill", ctypes.c_double),
-        ("ent", ctypes.POINTER(ctypes.c_int8)),
-        ("dat", ctypes.POINTER(ctypes.c_float)),
-        ("meta", ctypes.POINTER(ctypes.c_int32)),
-        ("meta_v", ctypes.POINTER(ctypes.c_int32)),
-    ]
-
-
-# allocator callback for the copy-free pet_build2 ABI: Python hands out
-# zeroed numpy buffers the builder fills in place
-_PET_ALLOC_FN = ctypes.CFUNCTYPE(
-    ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
-)
-
-
-def _compile():
-    src = os.path.join(_CSRC, "pet_build.cpp")
+def _build(name, extra_flags=()):
+    """Compile ``csrc/<name>.cpp`` once (keyed by its content hash) and
+    return the loaded ``ctypes.CDLL``."""
+    src = os.path.join(_CSRC, f"{name}.cpp")
     with open(src, "rb") as f:
-        blob = f.read()
-    import hashlib
-
-    tag = hashlib.sha256(blob).hexdigest()[:16]
-    so = os.path.join(_cache_dir(), f"_pet_build_{tag}.so")
+        tag = hashlib.sha256(f.read()).hexdigest()[:16]
+    so = os.path.join(_cache_dir(), f"_{name}_{tag}.so")
     if not os.path.exists(so):
         with tempfile.TemporaryDirectory() as td:
-            tmp = os.path.join(td, "pet_build.so")
+            tmp = os.path.join(td, f"{name}.so")
             subprocess.run(
-                ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", src,
-                 "-o", tmp],
+                ["g++", "-O3", *extra_flags, "-shared", "-fPIC",
+                 "-std=c++17", src, "-o", tmp],
                 check=True, capture_output=True,
             )
             os.replace(tmp, so)
-    return so
+    return ctypes.CDLL(so)
 
 
-def _load():
-    global _lib, _tried
-    if _tried:
-        return _lib
-    _tried = True
-    if os.environ.get("KRYLOV_TPU_NO_NATIVE"):
-        return None
-    try:
-        lib = ctypes.CDLL(_compile())
-        lib.pet_build.restype = ctypes.POINTER(_PetOut)
-        lib.pet_build.argtypes = [
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_float),
-            ctypes.c_int64,
-        ]
-        lib.pet_free.restype = None
-        lib.pet_free.argtypes = [ctypes.POINTER(_PetOut)]
-        lib.pet_build2.restype = ctypes.c_int32
-        lib.pet_build2.argtypes = [
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
-            ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
-            ctypes.c_int64,
-            _PET_ALLOC_FN,
-            ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_double),
-        ]
-        _lib = lib
-    except Exception as e:  # no compiler / sandboxed fs / bad cache
-        sys.stderr.write(f"krylov_tpu: native build unavailable ({e!r}); "
-                         "using the numpy PET builder\n")
-        _lib = None
-    return _lib
-
-
-def pet_build_native(csr, lc=None, cwp=None):
-    """Native twin of the numpy PET array construction.
-
-    ``csr``: canonical scipy CSR, float32.  Returns the dict of HOST
-    numpy arrays + geometry (same contents as the numpy path; callers
-    convert to device arrays), or None when the native path is
-    unavailable.
-
-    Uses the copy-free ``pet_build2`` ABI: the builder writes straight
-    into numpy-owned zeroed buffers (no output copies — the old path
-    double-buffered ~0.5 GB on large matrices) and reads scipy's native
-    int32 index arrays without widening.
-    """
-    import numpy as np
-
-    lib = _load()
-    if lib is None:
-        return None
-    n, m = csr.shape
-    indptr, indices = csr.indptr, csr.indices
-    if indptr.dtype == np.int32 and indices.dtype == np.int32:
-        idx64 = 0
-    else:
-        indptr = np.ascontiguousarray(indptr, dtype=np.int64)
-        indices = np.ascontiguousarray(indices, dtype=np.int64)
-        idx64 = 1
-    data = np.ascontiguousarray(csr.data, dtype=np.float32)
-
-    bufs = {}
-
-    @_PET_ALLOC_FN
-    def _alloc(nbytes, which):
-        a = np.zeros(int(nbytes), np.uint8)
-        bufs[int(which)] = a
-        return a.ctypes.data
-
-    nchunks_c = ctypes.c_int64()
-    lc_c = ctypes.c_int64()
-    fill_c = ctypes.c_double()
-    rc = lib.pet_build2(
-        n, m, int(csr.nnz),
-        indptr.ctypes.data_as(ctypes.c_void_p),
-        indices.ctypes.data_as(ctypes.c_void_p),
-        idx64,
-        data.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        0 if lc is None else int(lc),
-        0 if cwp is None else int(cwp),
-        _alloc,
-        ctypes.byref(nchunks_c), ctypes.byref(lc_c), ctypes.byref(fill_c),
-    )
-    if rc != 0:
-        return None
-    nchunks, lc_out = int(nchunks_c.value), int(lc_c.value)
+def status():
+    """``{helper: "native" | "numpy"}`` — which route each setup helper
+    takes in this process (loads them on first call)."""
     return {
-        "ent": bufs[0].view(np.int8).reshape(nchunks * lc_out, 128),
-        "dat": bufs[1].view(np.float32).reshape(nchunks * lc_out, 128),
-        "meta": bufs[2].view(np.int32),
-        "meta_v": bufs[3].view(np.int32).reshape(nchunks * 8, 128),
-        "nchunks": nchunks, "lc": lc_out, "fill": float(fill_c.value),
+        name: "native" if load() is not None else "numpy"
+        for name, load in (
+            ("amg_agg", _load_agg), ("amg_rap", _load_rap),
+            ("ilu0", _load_ilu),
+        )
     }
 
 
@@ -185,25 +77,9 @@ def _load_agg():
     if os.environ.get("KRYLOV_TPU_NO_NATIVE"):
         return None
     try:
-        src = os.path.join(_CSRC, "amg_agg.cpp")
-        with open(src, "rb") as f:
-            blob = f.read()
-        import hashlib
-
-        tag = hashlib.sha256(blob).hexdigest()[:16]
-        so = os.path.join(_cache_dir(), f"_amg_agg_{tag}.so")
-        if not os.path.exists(so):
-            with tempfile.TemporaryDirectory() as td:
-                tmp = os.path.join(td, "amg_agg.so")
-                # -ffp-contract=off: the sort key must be bit-identical
-                # to numpy's (no FMA fusion of the final mul-subtract)
-                subprocess.run(
-                    ["g++", "-O3", "-ffp-contract=off", "-shared", "-fPIC",
-                     "-std=c++17", src, "-o", tmp],
-                    check=True, capture_output=True,
-                )
-                os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
+        # -ffp-contract=off: the sort key must be bit-identical to numpy's
+        # (no FMA fusion of the final mul-subtract)
+        lib = _build("amg_agg", ("-ffp-contract=off",))
         i64p = ctypes.POINTER(ctypes.c_int64)
         lib.amg_pairwise_labels.restype = ctypes.c_int64
         lib.amg_pairwise_labels.argtypes = [
@@ -283,23 +159,7 @@ def _load_rap():
     if os.environ.get("KRYLOV_TPU_NO_NATIVE"):
         return None
     try:
-        src = os.path.join(_CSRC, "amg_rap.cpp")
-        with open(src, "rb") as f:
-            blob = f.read()
-        import hashlib
-
-        tag = hashlib.sha256(blob).hexdigest()[:16]
-        so = os.path.join(_cache_dir(), f"_amg_rap_{tag}.so")
-        if not os.path.exists(so):
-            with tempfile.TemporaryDirectory() as td:
-                tmp = os.path.join(td, "amg_rap.so")
-                subprocess.run(
-                    ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", src,
-                     "-o", tmp],
-                    check=True, capture_output=True,
-                )
-                os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
+        lib = _build("amg_rap")
         lib.amg_rap.restype = ctypes.c_int64
         lib.amg_rap.argtypes = [
             ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
@@ -404,23 +264,7 @@ def _load_ilu():
     if os.environ.get("KRYLOV_TPU_NO_NATIVE"):
         return None
     try:
-        src = os.path.join(_CSRC, "ilu0.cpp")
-        with open(src, "rb") as f:
-            blob = f.read()
-        import hashlib
-
-        tag = hashlib.sha256(blob).hexdigest()[:16]
-        so = os.path.join(_cache_dir(), f"_ilu0_{tag}.so")
-        if not os.path.exists(so):
-            with tempfile.TemporaryDirectory() as td:
-                tmp = os.path.join(td, "ilu0.so")
-                subprocess.run(
-                    ["g++", "-O3", "-shared", "-fPIC", "-std=c++17", src,
-                     "-o", tmp],
-                    check=True, capture_output=True,
-                )
-                os.replace(tmp, so)
-        lib = ctypes.CDLL(so)
+        lib = _build("ilu0")
         i64p = ctypes.POINTER(ctypes.c_int64)
         lib.ilu0_factor.restype = ctypes.c_int64
         lib.ilu0_factor.argtypes = [

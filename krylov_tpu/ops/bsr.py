@@ -2,19 +2,20 @@
 
 Device-resident BSR in ELL-padded form (every block-row stores the same
 number of blocks; zero blocks pad short rows — padding contributes exact
-zeros).  The multi-RHS matvec runs on the MXU via the Pallas SpMM kernel
-(:mod:`krylov_tpu.ops.pallas_bsr`) when shapes allow; otherwise a gather +
-einsum + segment-sum contraction that XLA compiles well on every backend.
+zeros).  The multi-RHS matvec is a gather + batched block einsum + sum
+over each block row, which XLA hands to its batched-matmul path.
 
 This is the block-structured counterpart of :class:`CSROperator`
-(SURVEY.md §2.2: the reference's scipy-CSR/BLAS crossings map to Pallas
-CSR/BSR SpMV/SpMM kernels).
+(SURVEY.md §2.2: the reference's scipy-CSR/BLAS crossings map to device
+CSR/BSR SpMV/SpMM).
 """
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.tree_util import register_pytree_node_class
+
+from .._precision import einsum
 
 
 @register_pytree_node_class
@@ -66,16 +67,12 @@ class BSROperator:
         return int(np.prod(self.data.shape))
 
     def _spmm(self, x2):
-        from . import pallas_bsr
-
+        # gather x slabs, batched block matmul, then sum the max_blocks
+        # products of each block-row
         R, C = self.blocksize
-        if pallas_bsr.supports(x2.dtype, R, C, x2.shape[1]):
-            return pallas_bsr.bsr_spmm(self.data, self.cols, x2)
-        # portable contraction: gather x slabs, batched block matmul,
-        # then sum the max_blocks products of each block-row
         nbrows, max_blocks = self.cols.shape
         xg = x2.reshape(-1, C, x2.shape[1])[self.cols.reshape(-1)]
-        prod = jnp.einsum("brc,bck->brk", self.data, xg)
+        prod = einsum("brc,bck->brk", self.data, xg)
         prod = prod.reshape(nbrows, max_blocks, R, x2.shape[1])
         return prod.sum(axis=1).reshape(nbrows * R, x2.shape[1])
 
@@ -95,7 +92,7 @@ class BSROperator:
         xr = x2.reshape(nbrows, R, k)
         # per stored block: conj(B)^H @ x_blockrow
         xb = jnp.repeat(xr, max_blocks, axis=0)  # (nb_total, R, k)
-        prod = jnp.einsum("brc,brk->bck", jnp.conj(self.data), xb)
+        prod = einsum("brc,brk->bck", jnp.conj(self.data), xb)
         nbcols = self.shape[1] // C
         out = jax.ops.segment_sum(
             prod, self.cols.reshape(-1), num_segments=nbcols
@@ -140,8 +137,8 @@ def detect_blocksize(
 
     Among the candidate blocksizes whose dense-block fill ratio (true nnz /
     stored block entries) reaches ``min_fill``, returns the one with the
-    HIGHEST fill -- the SpMM is HBM-bound, so minimizing streamed padding
-    beats maximizing MXU tile size.  Returns ``None`` when no candidate
+    HIGHEST fill -- the SpMM is memory-bound, so minimizing streamed padding
+    beats maximizing the block size.  Returns ``None`` when no candidate
     qualifies (scattered sparsity stays on the CSR path).
 
     Candidates whose **ELL padding** would blow up are also rejected:

@@ -1,19 +1,17 @@
-"""Sparse operators with TPU-friendly matvecs.
+"""Device-resident sparse operators.
 
 The reference consumes scipy's CSR matvec implicitly (reference:
 tests/test_solvers.py:199-209 accepts any ``A`` with ``@``).  Here sparse
 matrices are first-class device-resident operators:
 
-* :class:`CSROperator` — general sparsity, portable: a gather +
-  ``segment_sum`` contraction.  NOTE: XLA lowers the x-gather to serial
-  dynamic slices on TPU (~0.06 Gnnz/s measured on v5e) — for TPU runs
-  convert to :class:`krylov_tpu.ops.pallas_spmv.PETOperator`, the Pallas
-  page-ELL kernel (~300x faster), or to a structured operator below.
+* :class:`CSROperator` — general sparsity: a gather of ``x`` by column
+  index, an elementwise product and a ``segment_sum`` over rows.  The
+  segment sum is a scatter-add, so on a GPU its order of summation (and
+  with it the last bits of ``y``) may vary between runs.
 * :class:`DiaOperator` — diagonal/banded (stencil) storage: SpMV is a sum of
-  shifted scaled vector reads, a pure VPU-streaming pattern that runs at HBM
-  speed-of-light with no index traffic at all.  This is the preferred format
-  for the Poisson/Laplacian benchmark family (see also the grid-stencil
-  Pallas kernels in :mod:`krylov_tpu.ops.pallas_stencil`).
+  shifted scaled vector reads with no index traffic at all.  This is the
+  preferred format for the Poisson/Laplacian benchmark family (see also the
+  grid-stencil operators in :mod:`krylov_tpu.ops.stencil`).
 
 Both are registered pytrees, so they pass through ``jit``/``while_loop`` and
 can be sharded over a mesh (see :mod:`krylov_tpu.parallel`).
@@ -55,8 +53,7 @@ class CSROperator:
     def from_scipy(cls, A, to_device=True):
         """``to_device=False`` keeps host numpy leaves so a caller
         assembling many operators can move them in ONE ``jax.device_put``
-        of the enclosing pytree (per-array puts cost a full round-trip
-        each on remote-TPU backends)."""
+        of the enclosing pytree."""
         csr = A.tocsr()
         csr.sort_indices()
         # host-side row expansion: the jnp.repeat fallback in __init__
@@ -173,7 +170,7 @@ class DiaOperator:
 
     ``diags`` has shape ``(ndiag, N)``; ``offsets`` is a static tuple.  The
     matvec reads each stored diagonal once and accumulates shifted elementwise
-    products — no index traffic, so HBM-bandwidth-bound at speed-of-light.
+    products — no index traffic, so the matvec is memory-bandwidth-bound.
     Scipy ``spdiags`` convention: ``diags[d, i] * x[i]`` contributes to row
     ``i - offset`` (i.e. row i reads ``diags[d, i + offset] * x[i + offset]``).
     """

@@ -3,11 +3,11 @@
 The benchmark family of BASELINE.json (2D/3D Poisson at 1M-100M rows) is
 banded: every row reads a fixed set of column offsets.  Row-wise banded
 storage ``coeffs[d, i] = A[i, i + offsets[d]]`` makes the matvec a sum of
-*shifted elementwise products* — no index traffic at all, pure VPU streaming
-at HBM speed-of-light, and the natural format for halo-exchange row
+*shifted elementwise products* — no index traffic at all, one fused
+streaming pass over memory, and the natural format for halo-exchange row
 partitioning (each shard only needs ``max|offset|`` remote entries per side).
 
-This is the TPU-native answer to the reference's implicit reliance on scipy
+This is the structured answer to the reference's implicit reliance on scipy
 CSR matvecs (SURVEY.md §2.2): keep CSR for general sparsity, use banded
 storage where the structure allows.
 """
@@ -136,20 +136,17 @@ class GridStencilOperator(BandedOperator):
 
     Same flat ``(N,)``-vector interface and semantics as
     :class:`BandedOperator`, plus a grid factorization ``offset = dr * ny +
-    dc`` (``|dc| < ny/2``) that unlocks the TPU speed-of-light path: the
-    matvec runs as a 2-D stencil — row shifts on the sublane dim, column
-    shifts as lane rolls — via the Pallas kernel
-    (:mod:`krylov_tpu.ops.pallas_stencil`) on TPU, or a padded-2-D XLA
-    formulation elsewhere (both measured far ahead of the flattened 1-D
-    shifted-slice form: ~12x and ~4.3x on v5e).
+    dc`` (``|dc| < ny/2``): the matvec runs as a 2-D stencil on the
+    ``(M, ny)`` grid view — row shifts as slices of a halo-extended window,
+    column shifts as padded slices — which XLA fuses into one elementwise
+    pass (no flattened 1-D shifted-slice scatter-adds).
 
     Contract: coefficients must be zero wherever the 2-D neighbor
     ``(i + dr, j + dc)`` leaves the grid (the constructors here guarantee
     it); the kernel's wrapped/zero halo reads are then unobservable.
 
     Coefficients are stored in the 2-D ``(ndiag, M, ny)`` device layout
-    (1-D<->2-D reshapes are relayout copies on TPU tiled memory — measured
-    ~3x per-matvec penalty when done per iteration); the flat ``(ndiag, N)``
+    (so no per-iteration reshape of the coefficients); the flat ``(ndiag, N)``
     view used by the inherited utility methods is exposed as a property.
     Vectors may be flat ``(N,)`` or grid-shaped ``(M, ny)``; grid-shaped
     vectors avoid the per-iteration vector relayout entirely and are the
@@ -192,8 +189,8 @@ class GridStencilOperator(BandedOperator):
     # solvers accept grid-shaped vectors for this operator (solvers/_common.py)
     vector_shape = grid
 
-    def _matvec_2d(self, c2, x2, top_halo=None, bot_halo=None):
-        """Padded-shift XLA formulation on the (M, ny) grid view.
+    def _apply_grid(self, x2, top_halo=None, bot_halo=None):
+        """Padded-shift matvec on the (M, ny) grid view.
 
         Optional ``top_halo``/``bot_halo`` ``(h, ny)`` splice in neighbor
         rows for the row-partitioned distributed operator (zeros otherwise).
@@ -224,28 +221,9 @@ class GridStencilOperator(BandedOperator):
                 seg = jnp.pad(seg[:, dc:], ((0, 0), (0, dc)))
             elif dc < 0:
                 seg = jnp.pad(seg[:, :dc], ((0, 0), (-dc, 0)))
-            term = c2[d] * seg
+            term = self.coeffs2d[d] * seg
             y = term if y is None else y + term
         return y
-
-    def _apply_grid(self, x2, top_halo=None, bot_halo=None):
-        from . import pallas_stencil
-
-        M, ny = self.grid
-        if pallas_stencil.supports(x2.dtype, M, ny, self.row_offsets):
-            h = max(
-                (max(0, -min(self.row_offsets)), max(0, max(self.row_offsets)))
-            )
-            # callers pass exactly (h_caller, ny) halos with h_caller >= h
-            trim_t = None if top_halo is None or h == 0 else top_halo[-h:]
-            trim_b = None if bot_halo is None or h == 0 else bot_halo[:h]
-            return pallas_stencil.stencil2d_matvec(
-                self.coeffs2d, x2, self.row_offsets, self.col_offsets,
-                top_halo=trim_t, bot_halo=trim_b,
-            )
-        return self._matvec_2d(
-            self.coeffs2d, x2, top_halo=top_halo, bot_halo=bot_halo
-        )
 
     def __matmul__(self, x):
         M, ny = self.grid
@@ -356,8 +334,8 @@ def diffusion_2d(a, dtype=None):
 def poisson_3d(nx, ny=None, nz=None, dtype=np.float64):
     """7-point 3-D Laplacian (Dirichlet) on an (nx, ny, nz) grid.
 
-    Grid-collapsed to 2-D ``(nx * ny, nz)``: offsets ±1 are lane shifts,
-    ±nz and ±ny*nz are sublane (row) shifts.
+    Grid-collapsed to 2-D ``(nx * ny, nz)``: offsets ±1 are column shifts,
+    ±nz and ±ny*nz are row shifts.
     """
     ny = nx if ny is None else ny
     nz = nx if nz is None else nz
@@ -369,19 +347,18 @@ def poisson_3d(nx, ny=None, nz=None, dtype=np.float64):
 class ConstStencilOperator:
     """Constant-coefficient n-D stencil with Dirichlet boundaries.
 
-    The TPU speed-of-light format for the Poisson/Laplacian benchmark family:
-    the operator carries only static scalar weights — no coefficient arrays —
-    so a matvec's HBM traffic is just x-read + y-write (~2N words,
-    ~3x less than the variable-coefficient banded kernel, ~(ndiag+2)/2 x less
-    than CSR).  Boundary (Dirichlet) masking is computed in-kernel from
-    element indices (:func:`krylov_tpu.ops.pallas_stencil.const_stencil2d_matvec`);
-    off-TPU a roll+mask XLA formulation is used.
+    The lightest format for the Poisson/Laplacian benchmark family: the
+    operator carries only static scalar weights — no coefficient arrays —
+    so a matvec's memory traffic is just x-read + y-write (~2N words,
+    against 7N for the 5-point variable-coefficient operator and
+    ~(ndiag+2)/2 x less than CSR).  Boundary (Dirichlet) masking is
+    computed from element indices inside the fused roll+mask expression.
 
     ``shape_nd`` is the n-D grid shape (n >= 2); ``offsets_nd`` is a tuple of
     n-D integer offset vectors, ``weights`` the matching static scalars.  The
     grid collapses to ``(M, ny) = (prod(shape[:-1]), shape[-1])``; vectors
     may be flat ``(N,)`` or grid-shaped ``(M, ny)`` (the fast path, avoiding
-    TPU relayout copies).
+    a reshape per matvec).
     """
 
     def __init__(self, shape_nd, offsets_nd, weights, dtype=np.float64):
@@ -422,13 +399,6 @@ class ConstStencilOperator:
             )
             bands.append((dr, dc, w, constraints))
         self.bands = tuple(bands)
-        # Pallas paths use zero halo planes at the array edges, so a
-        # constraint on an axis spanning ALL rows is redundant there (the
-        # roll-based XLA fallback wraps rows and still needs it)
-        self.kernel_bands = tuple(
-            (dr, dc, w, tuple(c for c in cons if c[0] * c[1] < M))
-            for dr, dc, w, cons in self.bands
-        )
         self.hermitian = set(
             (tuple(-o for o in off), w) for off, w in zip(self.offsets_nd, self.weights)
         ) == set(zip(self.offsets_nd, self.weights))
@@ -455,83 +425,6 @@ class ConstStencilOperator:
             total += cnt
         return total
 
-    def _masks_2d(self, dtype):
-        """(per-band) boolean masks on the (M, ny) grid — XLA fallback."""
-        M, ny = self.grid
-        rows = jnp.arange(M, dtype=jnp.int32)[:, None]
-        cols = jnp.arange(ny, dtype=jnp.int32)[None, :]
-        masks = []
-        for dr, dc, w, constraints in self.bands:
-            m = None
-            for stride, size, step in constraints:
-                c = (rows // stride) % size
-                mm = (c + step >= 0) & (c + step < size)
-                m = mm if m is None else m & mm
-            if dc:
-                mc = (cols + dc >= 0) & (cols + dc < ny)
-                m = mc if m is None else m & mc
-            masks.append(m)
-        return masks
-
-    def _maskless_eligible(self):
-        """Bands correctable outside the kernel: at most one constraint
-        type per band, and row constraints aligned with the row shift."""
-        for dr, dc, w, constraints in self.kernel_bands:
-            if len(constraints) > 1 or (constraints and dc):
-                return False
-            if constraints:
-                stride, size, step = constraints[0]
-                if dr != step * stride:
-                    return False
-        return True
-
-    def _boundary_corrections(self, y, x2):
-        """Subtract the wrapped contributions a maskless kernel added.
-
-        Column wraps touch |dc| edge lanes; row-constraint wraps touch
-        ``|step| * stride`` rows per ``stride * size`` period — both
-        O(N / grid-dim) traffic.
-        """
-        M, ny = self.grid
-        for dr, dc, w, constraints in self.kernel_bands:
-            if dc:
-                # lane j >= ny-dc (dc>0) read x[r+dr, j+dc-ny]; remove
-                k = abs(dc)
-                src_cols = x2[:, :k] if dc > 0 else x2[:, ny - k :]
-                # row shift by dr with zero padding (thin (M, k) array)
-                if dr > 0:
-                    src_cols = jnp.pad(src_cols[dr:], ((0, dr), (0, 0)))
-                elif dr < 0:
-                    src_cols = jnp.pad(src_cols[:dr], ((-dr, 0), (0, 0)))
-                if dc > 0:
-                    y = y.at[:, ny - k :].add(-w * src_cols)
-                else:
-                    y = y.at[:, :k].add(-w * src_cols)
-            elif constraints:
-                stride, size, step = constraints[0]
-                period = stride * size
-                P = M // period
-                y4 = y.reshape(P, size, stride, ny)
-                x4 = x2.reshape(P, size, stride, ny)
-                s = abs(step)
-                if step > 0:
-                    # rows with coord >= size-step read the next period's
-                    # first slabs (zero beyond the array)
-                    src = jnp.concatenate(
-                        [x4[1:, :s], jnp.zeros((1, s, stride, ny), x2.dtype)],
-                        axis=0,
-                    )
-                    y4 = y4.at[:, size - s :].add(-w * src)
-                else:
-                    src = jnp.concatenate(
-                        [jnp.zeros((1, s, stride, ny), x2.dtype),
-                         x4[:-1, size - s :]],
-                        axis=0,
-                    )
-                    y4 = y4.at[:, :s].add(-w * src)
-                y = y4.reshape(M, ny)
-        return y
-
     def _apply_grid(self, x2, row0=None, top_halo=None, bot_halo=None):
         """Matvec on the (M_local, ny) grid view.
 
@@ -540,24 +433,9 @@ class ConstStencilOperator:
         (the boundary masks are defined on global coordinates) and the
         halos are the neighbor shards' boundary rows.
         """
-        from . import pallas_stencil
-
         M, ny = x2.shape
         row_offsets = tuple(b[0] for b in self.bands)
-        sharded = row0 is not None
-        if pallas_stencil.supports(x2.dtype, M, ny, row_offsets):
-            if not sharded and self._maskless_eligible():
-                # maskless kernel + O(N/dim) boundary fixes: skips the
-                # per-band in-kernel selects entirely
-                y = pallas_stencil.const_stencil2d_matvec(
-                    x2, self.kernel_bands, masked=False
-                )
-                return self._boundary_corrections(y, x2)
-            return pallas_stencil.const_stencil2d_matvec(
-                x2, self.kernel_bands if not sharded else self.bands,
-                row0=row0, top_halo=top_halo, bot_halo=bot_halo,
-            )
-        # XLA fallback: halo-extended window + slices + boundary masks
+        # halo-extended window + slices + boundary masks
         h = max(
             (max(0, -min(row_offsets)), max(0, max(row_offsets)), 1)
         )
@@ -579,7 +457,7 @@ class ConstStencilOperator:
         for dr, dc, w, constraints in self.bands:
             seg = jax.lax.slice_in_dim(x_ext, h + dr, h + dr + M, axis=0)
             if dc:
-                # lane shift with wrap (mask below kills the wrap)
+                # column shift with wrap (mask below kills the wrap)
                 seg = jnp.roll(seg, -dc, axis=1)
             m = None
             for stride, size, step in constraints:
@@ -682,7 +560,7 @@ def _laplace_offsets(nd):
 
 def poisson_2d_const(nx, ny=None, dtype=np.float32):
     """5-point 2-D Laplacian as a constant-coefficient stencil (no
-    coefficient arrays; speed-of-light TPU format)."""
+    coefficient arrays: ~2N words of traffic per matvec)."""
     ny = nx if ny is None else ny
     offs, ws = _laplace_offsets(2)
     return ConstStencilOperator((nx, ny), offs, ws, dtype=dtype)

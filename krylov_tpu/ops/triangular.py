@@ -45,7 +45,7 @@ def grid_lower_sweep(coeffs2d, row_offsets, col_offsets, b2, omega=1.0):
     part of a :class:`~krylov_tpu.ops.stencil.GridStencilOperator` whose
     within-row coupling is first-order (``col_offsets`` subset of {0, -1} on
     the ``dr == 0`` bands) — true for all the grid Laplacians here.  This is
-    the scalable TPU substitute for scipy's sequential
+    the scalable data-parallel substitute for scipy's sequential
     ``spsolve_triangular`` (SURVEY.md §2.2): a ``lax.scan`` over grid rows
     (the inherently sequential direction) with the within-row first-order
     recurrence solved in parallel depth O(log ny) by
@@ -326,8 +326,8 @@ class LevelScheduledTriangularSolve:
 
     The reference handles sparse Gauss-Seidel/SOR sweeps with scipy's
     sequential ``spsolve_triangular`` (reference:
-    src/krylov/stationary.py:33-38).  A sequential row loop cannot run on
-    TPU; instead rows are grouped host-side into dependency *levels* (row i
+    src/krylov/stationary.py:33-38).  A sequential row loop would serialize
+    the device; instead rows are grouped host-side into dependency *levels* (row i
     is in level ``1 + max(level of its strictly-triangular neighbors)``),
     and the solve executes one fused data-parallel step per level:
 

@@ -1,4 +1,4 @@
-"""Distribution layer: row-partitioned solves over a TPU mesh.
+"""Distribution layer: row-partitioned solves over a device mesh.
 
 First-class build components with no reference counterpart (the reference is
 a single-process NumPy program — SURVEY.md §2.3):
@@ -6,7 +6,7 @@ a single-process NumPy program — SURVEY.md §2.3):
 * :func:`make_mesh` / :func:`psum_inner` — the ``(rows, rhs)`` device mesh
   and the psum-allreduce inner product,
 * :class:`ShardedBandedOperator` — stencil row slabs with ``ppermute`` halo
-  exchange over ICI,
+  exchange between neighbor devices,
 * :class:`ShardedCSROperator` / :func:`partition_csr` — general sparsity with
   automatic halo/all-gather strategy,
 * :func:`sharded_solve` — run any solver as one compiled SPMD program.
@@ -17,7 +17,6 @@ from ..blockjacobi import BlockJacobiPartition, partition_block_jacobi
 from .amg import AMGPartition, partition_amg
 from .banded import ShardedBandedOperator
 from .bsr import ShardedBSROperator
-from .pet import PETPartition, ShardedPETOperator, partition_pet
 from .csr import ShardedCSROperator, partition_csr
 from .grid import ShardedConstStencilOperator, ShardedGridStencilOperator
 from .mesh import RHS, ROWS, make_mesh, psum_inner
@@ -37,9 +36,6 @@ __all__ = [
     "RHS",
     "ShardedBandedOperator",
     "ShardedBSROperator",
-    "ShardedPETOperator",
-    "PETPartition",
-    "partition_pet",
     "ShardedCSROperator",
     "ShardedConstStencilOperator",
     "ShardedGridStencilOperator",

@@ -7,7 +7,7 @@ no distribution layer, SURVEY.md §2.3).  This is the general-sparsity twin of
 cycles need a grid stencil, AMG coarsens the MATRIX, so variable coefficients
 and unstructured meshes shard too.
 
-Split of labor, TPU-first:
+Split of labor:
 
 * **Setup** (once, host, scipy): the same smoothed-aggregation coarsening as
   :class:`~krylov_tpu.amg.AMGPreconditioner`, but built on the zero-padded
@@ -17,7 +17,7 @@ Split of labor, TPU-first:
   its fine-row slab of the prolongator as padded COO triplets.
 * **Apply** (every iteration, on device, inside ``shard_map``): smoothing at
   the fine level rides the SOLVE'S OWN operator (the halo-exchanging
-  ShardedCSR/PET matvec — one ppermute pair per sweep); deeper sharded
+  ShardedCSR matvec — one ppermute pair per sweep); deeper sharded
   levels smooth through their own :class:`ShardedCSROperator`.  Grid
   transfer is where AMG differs from the geometric cycles: aggregates cross
   shard boundaries, so restriction is a shard-local ``P_s^H d_s`` partial
@@ -32,7 +32,7 @@ Split of labor, TPU-first:
 * **Replicated tail**: after ``n_sharded_levels`` coarsenings the problem is
   ~4^levels smaller, so every shard redundantly runs the same single-device
   :class:`~krylov_tpu.amg.AMGPreconditioner` V-cycle on it — replicated
-  compute instead of a serial bottleneck, the standard TPU trade.
+  compute instead of a serial bottleneck.
 
 ``AMGPartition.as_global()`` returns the exact same cycle with every
 collective elided (``axis=None``) — a single-device twin used to pin
@@ -381,8 +381,7 @@ def partition_amg(A, n_shards, *, theta=0.08, smooth=2, omega=2.0 / 3.0,
 
     The fine level is zero-padded to the shard multiple exactly like
     :func:`~krylov_tpu.parallel.csr.partition_csr` pads the solve's matrix,
-    so pass the SAME matrix (same ordering — combine with PET partitions
-    built without ``reorder=``) to both.
+    so pass the SAME matrix (same ordering) to both.
     """
     import scipy.sparse
 

@@ -1,13 +1,14 @@
-"""Row-partitioned banded (stencil) operator with ICI halo exchange.
+"""Row-partitioned banded (stencil) operator with halo exchange.
 
 The distributed analogue of :class:`krylov_tpu.ops.stencil.BandedOperator`
 (no reference counterpart — the reference is single-process, SURVEY.md §2.3).
 Each shard owns a contiguous slab of rows; a row ``i`` reads
 ``x[i + offset]`` for each stored band, so a shard needs at most
 ``max(-min(offsets), 0)`` entries from its left neighbor and
-``max(max(offsets), 0)`` from its right neighbor.  Those halos travel over
-ICI as two ``lax.ppermute`` shifts, after which the matvec is the same pure
-VPU-streaming shifted-multiply-accumulate as the single-chip operator.
+``max(max(offsets), 0)`` from its right neighbor.  Those halos travel
+between neighbor devices as two ``lax.ppermute`` shifts, after which the
+matvec is the same streaming shifted-multiply-accumulate as the
+single-device operator.
 
 ``lax.ppermute`` fills devices that receive nothing with zeros — exactly the
 Dirichlet zero boundary the band coefficients already encode, so no masking
@@ -65,7 +66,7 @@ class ShardedBandedOperator:
     def exchange_halo(self, x, halo=None):
         """Return ``x_ext = [left halo | x | right halo]`` along axis 0.
 
-        Two neighbor ``ppermute`` shifts over ICI; edge shards receive zeros
+        Two neighbor ``ppermute`` shifts; edge shards receive zeros
         (Dirichlet).  Requires halo width <= n_local (single-neighbor halos).
         ``halo`` overrides the matvec-oriented ``self.halo`` widths — the
         adjoint matvec needs them swapped (see :meth:`rmatvec`).

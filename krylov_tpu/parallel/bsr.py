@@ -1,8 +1,8 @@
 """Row-partitioned BSR operator (all-gather mode).
 
-Block-structured matrices get the MXU SpMM locally
+Block-structured matrices get the dense-block SpMM locally
 (:class:`~krylov_tpu.ops.bsr.BSROperator`); across the mesh, each shard
-owns a slab of block rows and the iterate is ``all_gather``-ed over ICI
+owns a slab of block rows and the iterate is ``all_gather``-ed
 before the local SpMM (dense block columns generally reach far from the
 diagonal, so the all-gather mode mirrors the CSR "gather" strategy).
 The adjoint matvec computes each shard's full-length contribution and

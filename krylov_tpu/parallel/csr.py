@@ -1,4 +1,4 @@
-"""Row-partitioned CSR operator for a TPU mesh.
+"""Row-partitioned CSR operator for a device mesh.
 
 General-sparsity counterpart of :class:`ShardedBandedOperator` (no reference
 counterpart — SURVEY.md §2.3).  The global matrix is split into contiguous

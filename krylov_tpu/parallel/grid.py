@@ -1,14 +1,13 @@
 """Row-partitioned grid-stencil operator: the fast distributed SpMV path.
 
 :class:`~krylov_tpu.parallel.banded.ShardedBandedOperator` is the generic
-row-slab operator, but its local matvec uses flat shifted slices — the slow
-layout on TPU (SURVEY-measured ~12% of roofline).  For operators that factor
-over a grid (:class:`~krylov_tpu.ops.stencil.GridStencilOperator`) this
-operator keeps everything in the 2-D ``(M_local, ny)`` device layout: the
-shard exchanges ``h = max|row_offset|`` *grid rows* with its mesh neighbors
-via two ``lax.ppermute``s over ICI, then runs the exact same single-chip
-Pallas stencil kernel with the neighbor rows spliced in as halo planes
-(kernel: :func:`krylov_tpu.ops.pallas_stencil.stencil2d_matvec`,
+row-slab operator, but its local matvec uses flat shifted slices with
+scatter-adds.  For operators that factor over a grid
+(:class:`~krylov_tpu.ops.stencil.GridStencilOperator`) this operator keeps
+everything in the 2-D ``(M_local, ny)`` device layout: the shard exchanges
+``h = max|row_offset|`` *grid rows* with its mesh neighbors via two
+``lax.ppermute``s, then runs the exact same single-device grid stencil
+with the neighbor rows spliced in as halo planes (``_apply_grid``'s
 ``top_halo``/``bot_halo``).  Per iteration, the only cross-device traffic is
 ``2 * h * ny`` elements each way plus the solver's psum scalars.
 
@@ -112,7 +111,7 @@ class ShardedGridStencilOperator:
 
         The full-shard kernel runs with ZERO shard-edge halos — it has no
         data dependency on the ``ppermute``s, so XLA schedules it while the
-        halos are in flight over ICI.  Only the ``h`` boundary rows on each
+        halos are in flight.  Only the ``h`` boundary rows on each
         side are then recomputed from the received halos (O(h * ny) work).
 
         Blocked multi-RHS ``(M_local, ny, k)`` vmaps the grid kernel over

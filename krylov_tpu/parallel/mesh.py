@@ -3,14 +3,14 @@
 The reference is a single-process NumPy program with no communication layer
 (SURVEY.md §2.3; reference: src/krylov/_helpers.py:101-110 is the only
 "parallelism" — multi-RHS einsum blocking).  Here the distribution layer is
-TPU-native from the start:
+device-native from the start:
 
 * a 1-D or 2-D ``jax.sharding.Mesh`` with a ``rows`` axis (row-partitioning of
   the operator and all iterate vectors — the problem-dimension analogue of
   sequence parallelism) and an optional ``rhs`` axis (data-parallel blocking of
   right-hand-side columns),
 * inner products and norms become ``jax.lax.psum`` allreduces over ``rows`` —
-  the TPU-native analogue of an NCCL allreduce, riding ICI within a slice.
+  which XLA lowers to the platform's collective library (NCCL on GPUs).
 
 Every sharded solve is SPMD: the identical compiled program runs on each
 device, reductions are the only cross-device synchronization points (2 per CG
@@ -22,6 +22,8 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 from jax.sharding import Mesh
+
+from .. import _precision as prec
 
 ROWS = "rows"
 RHS = "rhs"
@@ -59,12 +61,12 @@ def psum_inner(b_shape, axis=ROWS):
     if len(b_shape) == 1:
 
         def inner_dot(x, y):
-            return lax.psum(jnp.dot(jnp.conj(x), y), axis)
+            return lax.psum(prec.dot(jnp.conj(x), y), axis)
 
         return inner_dot
 
     def inner_einsum(x, y):
-        return lax.psum(jnp.einsum("i...,i...->...", jnp.conj(x), y), axis)
+        return lax.psum(prec.einsum("i...,i...->...", jnp.conj(x), y), axis)
 
     return inner_einsum
 
@@ -108,7 +110,7 @@ def psum_batch_inner(axis=ROWS, vector_ndim=1):
     eq = "kmn...,mn...->k..." if vector_ndim == 2 else "kn...,n...->k..."
 
     def batch(Vb, w):
-        return lax.psum(jnp.einsum(eq, jnp.conj(Vb), w), axis)
+        return lax.psum(prec.einsum(eq, jnp.conj(Vb), w), axis)
 
     return batch
 
@@ -118,7 +120,7 @@ def psum_block_inner(axis=ROWS):
 
     def block(U, V):
         return lax.psum(
-            jnp.einsum("...k,...l->kl", jnp.conj(U), V), axis
+            prec.einsum("...k,...l->kl", jnp.conj(U), V), axis
         )
 
     return block

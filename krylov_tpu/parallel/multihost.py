@@ -2,13 +2,13 @@
 
 The reference has no multi-process support of any kind (SURVEY.md §2.3); this
 is the build-side component that takes the same row-partitioned SPMD solve
-from one chip to a pod slice and across slices:
+from one device to many hosts:
 
-* within a slice, the ``rows``-axis collectives (halo ``ppermute``, inner
-  ``psum``) ride ICI;
-* across slices/hosts they ride DCN — keep the ``rows`` axis innermost over
-  ICI-connected devices (the default device order does this) so the
-  latency-critical per-iteration allreduces stay on ICI.
+* within a host, the ``rows``-axis collectives (halo ``ppermute``, inner
+  ``psum``) ride the devices' direct links;
+* across hosts they ride the network — keep the ``rows`` axis contiguous
+  within a host (the default process-major device order does this) so most
+  halo exchanges stay on the fast links.
 
 Usage on each host of a multi-host job::
 
@@ -29,8 +29,8 @@ import jax
 def initialize(coordinator_address=None, num_processes=None, process_id=None):
     """Initialize the multi-host runtime (idempotent).
 
-    With no arguments, relies on the cluster environment (TPU pod metadata /
-    ``JAX_COORDINATOR_ADDRESS`` etc.), matching ``jax.distributed``'s
+    With no arguments, relies on the cluster environment (cluster-manager
+    metadata / ``JAX_COORDINATOR_ADDRESS`` etc.), matching ``jax.distributed``'s
     auto-detection.
 
     Failure semantics: when the caller passed EXPLICIT multi-process
@@ -69,9 +69,9 @@ def initialize(coordinator_address=None, num_processes=None, process_id=None):
 def global_mesh(n_rhs=1):
     """A ``(rows, rhs)`` mesh over every device in the job.
 
-    Device order follows ``jax.devices()`` (process-major, ICI-contiguous
-    within a slice), so contiguous ``rows`` shards are ICI neighbors and the
-    halo ``ppermute`` crosses DCN only at slice boundaries.
+    Device order follows ``jax.devices()`` (process-major), so contiguous
+    ``rows`` shards share a host and the halo ``ppermute`` crosses the
+    network only at host boundaries.
     """
     from .mesh import make_mesh
 

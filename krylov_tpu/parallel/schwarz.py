@@ -13,7 +13,7 @@ problem needs.  Nonsymmetric apply: feed the ``Ml`` of
 gmres/bicgstab/cgs/qmr (``sharded_solve`` routes ``M_partition`` there
 automatically for those solvers).
 
-TPU mapping — the sweep engine here differs deliberately from the
+Device mapping — the sweep engine here differs deliberately from the
 single-device :class:`~krylov_tpu.ops.triangular.LevelScheduledTriangularSolve`
 (which unrolls one XLA stage per dependency level): all levels are padded to
 a COMMON shape and the sweep is one ``lax.scan`` over the level axis, so the

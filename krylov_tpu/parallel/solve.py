@@ -27,7 +27,6 @@ from ..ops.sparse import CSROperator
 from ..ops.stencil import BandedOperator, ConstStencilOperator, GridStencilOperator
 from .banded import ShardedBandedOperator
 from .bsr import ShardedBSROperator
-from .pet import PETPartition, ShardedPETOperator
 from .csr import ShardedCSROperator, partition_csr
 from .grid import ShardedConstStencilOperator, ShardedGridStencilOperator
 from .mesh import (
@@ -58,10 +57,8 @@ def sharded_solve(
 
     * ``A`` — a :class:`~krylov_tpu.ops.stencil.BandedOperator` /
       :class:`GridStencilOperator` / :class:`ConstStencilOperator`, a
-      :class:`~krylov_tpu.ops.CSROperator` or scipy sparse matrix, a
-      :class:`~krylov_tpu.ops.bsr.BSROperator`, or a
-      :class:`~krylov_tpu.parallel.pet.PETPartition` from
-      :func:`partition_pet` (general sparsity on the Pallas PET kernel).
+      :class:`~krylov_tpu.ops.CSROperator` or scipy sparse matrix, or a
+      :class:`~krylov_tpu.ops.bsr.BSROperator`.
     * ``solver`` — any krylov_tpu solver accepting ``(A, b, inner=, x0=,
       backend=)`` (cg, minres, gmres, ...).
     * ``mesh`` — a ``(rows[, rhs])`` mesh from :func:`make_mesh` (default:
@@ -88,8 +85,7 @@ def sharded_solve(
       bandwidth-reduced ordering shrinks the halo the shards exchange
       and can flip the partition from all-gather to halo mode; the
       vectors are permuted once per solve and the iterate is returned
-      in user order (trajectories are permutation-invariant).  For PET
-      partitions pass ``reorder=`` to :func:`partition_pet` instead.
+      in user order (trajectories are permutation-invariant).
 
     Returns ``(sol, Info)`` with reference-parity semantics: ``sol is None``
     when unconverged, ``info.resnorms`` a host array of shape
@@ -133,11 +129,6 @@ def sharded_solve(
                 "grid operators precondition via "
                 "M_factory=multigrid_factory(...), not M_partition"
             )
-        if isinstance(A, PETPartition) and A.get("perm") is not None:
-            raise ValueError(
-                "M_partition needs the PET partition built without "
-                "reorder= (orderings must match)"
-            )
         if M_partition.n_shards != n_rows:
             raise ValueError(
                 f"M_partition built for {M_partition.n_shards} shards but "
@@ -149,10 +140,6 @@ def sharded_solve(
     if reorder is not None:
         # resolve once, permute the problem, recurse, un-permute the
         # iterate — uniform across plain and restarted solves
-        if isinstance(A, PETPartition):
-            raise ValueError(
-                "pass reorder= to partition_pet for PET partitions"
-            )
         if not (isinstance(A, CSROperator) or hasattr(A, "tocsr")):
             raise ValueError(
                 "reorder= supports scipy/CSR operators (grid/banded "
@@ -167,12 +154,12 @@ def sharded_solve(
                  np.asarray(A.indptr)),
                 shape=A.shape,
             )
-        from ..ops.pallas_spmv import invert_permutation, resolve_reorder
+        from ..ops.reorder import invert_permutation, resolve_reorder
 
         spA = spA.tocsr()
-        # "auto" here reorders when RCM at least halves the bandwidth —
-        # the quantity that sets the halo width the shards must exchange
-        perm_np = resolve_reorder(spA, reorder, metric="bandwidth")
+        # "auto" reorders when RCM at least halves the bandwidth — the
+        # quantity that sets the halo width the shards must exchange
+        perm_np = resolve_reorder(spA, reorder)
         if perm_np is not None:
             A_p = spA[perm_np][:, perm_np].tocsr()
             pj = jnp.asarray(perm_np, jnp.int32)
@@ -211,7 +198,7 @@ def sharded_solve(
             maxiter=maxiter, callback=callback, **solver_kwargs,
         )
 
-    # grid-stencil fast paths: 2-D layout end-to-end, Pallas kernel
+    # grid-stencil fast paths: 2-D layout end-to-end, grid stencil
     # locally, halo exchange in grid rows; blocked multi-RHS rides the same
     # path with a trailing column axis (vmapped local kernel)
     if (
@@ -257,16 +244,6 @@ def _make_general_run(
     """
     if maxiter is None:
         maxiter = N
-    # PET partitions built with reorder= hold B = A[perm][:, perm]: solve
-    # in the bandwidth-reduced order (permute the vectors ONCE per call,
-    # un-permute the iterate on return — inner products, residual norms
-    # and trajectories are permutation-invariant, and no per-iteration
-    # gather is needed, unlike the single-chip PETOperator route)
-    perm = A.get("perm") if isinstance(A, PETPartition) else None
-    if perm is not None:
-        perm = np.asarray(perm)
-        if M_diag is not None:
-            M_diag = jnp.asarray(M_diag)[perm]
     # any-N sharding (the reference accepts any N, reference:
     # src/krylov/cg.py:96-113): structured formats pad with unit-diagonal
     # rows / identity blocks — zero coupling to real rows, so padded
@@ -305,23 +282,6 @@ def _make_general_run(
         A_specs = (P(None, ROWS),)
         make_local = partial(
             _local_banded, offsets=A.offsets, hermitian=A.hermitian
-        )
-    elif isinstance(A, PETPartition):
-        n_parts = A["ent"].shape[0]
-        if n_parts != n_rows:
-            raise ValueError(
-                f"PET partition built for {n_parts} shards but the mesh "
-                f"rows axis has {n_rows} devices"
-            )
-        keys = ["ent", "dat", "meta", "meta_v",
-                "t_ent", "t_dat", "t_meta", "t_meta_v"]
-        A_arrays = tuple(A[k] for k in keys)
-        A_specs = tuple(
-            P(ROWS, *([None] * (A[k].ndim - 1))) for k in keys
-        )
-        make_local = partial(
-            _local_pet, geom=A["geom"], geom_t=A["t_geom"],
-            n_local=A["n_local"], n_global=A["shape"][0],
         )
     elif isinstance(A, BSROperator):
         nbrows = A.cols.shape[0]
@@ -450,11 +410,6 @@ def _make_general_run(
                 f"this sharded solver was built for RHS of ndim "
                 f"{rhs_ndim} with {N} rows; got shape {b.shape}"
             )
-        if perm is not None:
-            pj = jnp.asarray(perm, jnp.int32)
-            b = jnp.take(b, pj, axis=0)
-            if x0 is not None:
-                x0 = jnp.take(jnp.asarray(x0), pj, axis=0)
         if pad_rows:
             zpad = jnp.zeros((pad_rows,) + b.shape[1:], b.dtype)
             b = jnp.concatenate([b, zpad], axis=0)
@@ -468,11 +423,6 @@ def _make_general_run(
 
         if pad_rows:
             xk = xk[:N]
-        if perm is not None:
-            from ..ops.pallas_spmv import invert_permutation
-
-            inv = invert_permutation(perm)
-            xk = jnp.take(xk, jnp.asarray(inv, jnp.int32), axis=0)
         numsteps = int(np.max(np.asarray(numsteps)))
         success = bool(np.all(np.asarray(success)))
         resnorms = np.asarray(buf)[: numsteps + 1]
@@ -505,11 +455,9 @@ def make_sharded_solver(
     arguments.  The expensive per-call work — operator partitioning and
     padding, host->device transfer of the operator/preconditioner
     arrays, and the ``shard_map``/``jax.jit`` program construction —
-    happens HERE, once; each ``run`` call only pads/permutes the vectors
-    and invokes the cached compiled program.  Measured on the remote
-    v5e: a fresh ``sharded_solve`` call at 4.2M rows pays ~2 s of
-    host-side setup per call; ``run`` reduces that to the solve itself.
-    Use for time stepping, RHS sequences, and inner-outer methods.
+    happens HERE, once; each ``run`` call only pads the vectors and
+    invokes the cached compiled program.  Use for time stepping, RHS
+    sequences, and inner-outer methods.
 
     * ``n_rhs`` — blocked-RHS column count the solver is built for
       (``None``: single RHS).  Grid operators accept flat ``(N,)`` /
@@ -517,14 +465,14 @@ def make_sharded_solver(
       grid ``(M, ny, k)`` when ``n_rhs=k``; flat-vector operators take
       ``(N,)`` or ``(N, k)`` accordingly.
     * ``reorder=``/``restart=`` are not supported here — pre-permute the
-      matrix (or build :func:`partition_pet` with ``reorder=``) and use
+      matrix (:func:`krylov_tpu.ops.reorder.rcm_permutation`) and use
       :func:`sharded_solve` for restarted cycles.
     """
     if "reorder" in solver_kwargs or "restart" in solver_kwargs:
         raise ValueError(
             "make_sharded_solver does not take reorder=/restart= — "
-            "pre-permute the matrix (or partition_pet(reorder=...)) and "
-            "use sharded_solve for restarted cycles"
+            "pre-permute the matrix and use sharded_solve for restarted "
+            "cycles"
         )
     mesh = make_mesh() if mesh is None else mesh
     n_rows = mesh.shape[ROWS]
@@ -547,21 +495,12 @@ def make_sharded_solver(
         raise ValueError(
             "M_partition is mutually exclusive with M_diag/M_factory"
         )
-    if (
-        M_partition is not None
-        and isinstance(A, PETPartition)
-        and A.get("perm") is not None
-    ):
-        raise ValueError(
-            "M_partition needs the PET partition built without "
-            "reorder= (orderings must match)"
-        )
     if M_partition is not None and M_partition.n_shards != n_rows:
         raise ValueError(
             f"M_partition built for {M_partition.n_shards} shards but "
             f"the mesh rows axis has {n_rows} devices"
         )
-    N = A["shape"][0] if isinstance(A, PETPartition) else A.shape[0]
+    N = A.shape[0]
     rhs_dtype = jnp.dtype(getattr(A, "dtype", None) or jnp.float32)
     return _make_general_run(
         solver, A, mesh=mesh, n_rows=n_rows, shard_rhs=shard_rhs,
@@ -806,14 +745,6 @@ def _local_csr(data, col, row, *, n_local, halo, mode):
 
 def _local_bsr(data, cols, *, n_global):
     return ShardedBSROperator(data, cols, n_global, axis=ROWS)
-
-
-def _local_pet(*arrs, geom, geom_t, n_local, n_global):
-    keys = ["ent", "dat", "meta", "meta_v",
-            "t_ent", "t_dat", "t_meta", "t_meta_v"]
-    local = {k: a[0] for k, a in zip(keys, arrs)}
-    return ShardedPETOperator(local, geom, geom_t, n_local, n_global,
-                              axis=ROWS)
 
 
 def _sharded_restarted(

@@ -16,16 +16,12 @@ from .._operators import Identity, as_operator
 def setup(A, b, x0=None, inner=None, maxiter=None, needs_rmatvec=False):
     b = jnp.asarray(b)
     A = as_operator(A)
-    if needs_rmatvec and hasattr(A, "ensure_adjoint"):
-        # two-sided solvers materialize a lazy adjoint host-side, up
-        # front — inside jit (post-flatten) the host handle is gone
-        A.ensure_adjoint()
     assert len(A.shape) == 2
     assert A.shape[0] == A.shape[1]
     N = A.shape[0]
     # operators may declare a native (non-flat) vector space, e.g. the
-    # grid-shaped (M, ny) vectors of GridStencilOperator that avoid TPU
-    # relayout copies; such solves need an explicit full-contraction inner
+    # grid-shaped (M, ny) vectors of GridStencilOperator that avoid a
+    # reshape per matvec; such solves need an explicit full-contraction inner
     vec_shape = getattr(A, "vector_shape", None)
     if vec_shape is not None and tuple(b.shape[: len(vec_shape)]) == tuple(
         vec_shape
@@ -49,14 +45,13 @@ def initial_residual(A, b, x0, x0_is_default):
     With ``x0_is_default`` the matvec is skipped: ``A @ 0`` sums
     ``c * 0 = +0.0`` exactly and ``b - 0.0 == b`` for every float, so
     the VALUES are bitwise identical.  The DTYPE is made faithful too:
-    mixed-precision operators (e.g. the bf16 PET kernel accumulating in
-    f32) promote the residual, so ``b`` is cast to the dtype the real
+    mixed-precision operators (e.g. bf16 coefficients applied to f32
+    vectors) promote the residual, so ``b`` is cast to the dtype the real
     computation would produce — resolved by an abstract ``eval_shape``
     trace, zero FLOPs.  Beyond saving a matvec, keeping the compiled
     prologue free of an operator kernel whose output seeds the loop
     carry preserves XLA's in-place buffer aliasing for the whole
-    while_loop (measured ~300 us/iter at 4096^2, docs/design.md
-    "measured truth" note).
+    while_loop.
     """
     if not x0_is_default:
         return b - A @ x0

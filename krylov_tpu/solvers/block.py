@@ -3,13 +3,13 @@
 The reference's "blocked" solves (selling point #4) iterate each RHS
 column independently; every column builds its own Krylov space.  Block CG
 searches the UNION of the columns' spaces: per iteration one blocked SpMV
-``A @ P`` (an (N, k) SpMM — MXU-friendly) and two k-by-k matrix inner
+``A @ P`` (an (N, k) SpMM) and two k-by-k matrix inner
 products replace k independent scalar recurrences, and convergence is
 governed by the (k-1)-deflated spectrum — outlier eigenvalues are
 absorbed by the block, so ill-conditioned systems converge in
 substantially fewer iterations than column-wise CG.
 
-TPU-first framing: the per-iteration reductions are two ``(k, N) @ (N, k)``
+Device framing: the per-iteration reductions are two ``(k, N) @ (N, k)``
 contractions (one ``psum`` each when sharded — independent of k, vs the
 2k scalar reductions of column-wise CG), and the k-by-k solves run
 on-device.  Near-converged columns make the direction Gram matrix
@@ -31,6 +31,7 @@ from .._driver import EAGER, Method, run
 from .._info import Info
 from .._operators import Identity
 from ._common import preconditioner, setup
+from .. import _precision as prec
 
 
 class BlockCGState(NamedTuple):
@@ -45,7 +46,7 @@ class BlockCGState(NamedTuple):
 
 def _default_block_inner(U, V):
     # contract over ALL leading (vector) axes; trailing axis = RHS columns
-    return jnp.einsum("...k,...l->kl", jnp.conj(U), V)
+    return prec.einsum("...k,...l->kl", jnp.conj(U), V)
 
 
 def _ridge_solve(Gram, RHS):
@@ -142,12 +143,12 @@ def cg_block(
         Q = jnp.asarray(A @ st.P)
         delta = block_inner(st.P, Q)          # (k, k), one reduction
         alpha = _gram_solve(delta, st.gamma)
-        X = st.X + jnp.einsum("...k,kl->...l", st.P, alpha)
-        R = st.R - jnp.einsum("...k,kl->...l", Q, alpha)
+        X = st.X + prec.einsum("...k,kl->...l", st.P, alpha)
+        R = st.R - prec.einsum("...k,kl->...l", Q, alpha)
         Z = jnp.asarray(M_op @ R)
         gamma_new = block_inner(R, Z)         # (k, k), one reduction
         beta = _gram_solve(st.gamma, gamma_new)
-        P = Z + jnp.einsum("...k,kl->...l", st.P, beta)
+        P = Z + prec.einsum("...k,kl->...l", st.P, beta)
         # Euclidean per-column residual norms; free when M is the identity
         # (Z == R), one extra contraction otherwise
         rr = (

@@ -9,7 +9,7 @@ geometry, arbitrary ``inner``, multi-RHS blocking, per-iteration callback,
 Architecture differs from the reference: the recurrence is a pure functional
 ``step`` on a :class:`CGState` pytree driven by the shared driver
 (:mod:`krylov_tpu._driver`), so the identical code runs as a float64 host loop
-(parity mode) or as one compiled ``lax.while_loop`` on TPU.  The k==0 search
+(parity mode) or as one compiled ``lax.while_loop`` on device.  The k==0 search
 direction special case is removed by initializing ``p = 0`` — the first
 update ``p = M_Ml_r + omega * 0`` is then exact and branch-free.
 """
@@ -64,8 +64,7 @@ def cg(
         # float).  Beyond saving a matvec, keeping the prologue free of
         # an operator kernel whose output seeds the compiled loop carry
         # preserves XLA's in-place buffer aliasing for the whole
-        # while_loop (measured ~300 us/iter on the 4096^2 stencil path,
-        # docs/design.md "measured truth" note).
+        # while_loop.
         r = initial_residual(A, b, z, zero_z)
         Ml_r = Ml @ r
         M_Ml_r = M @ Ml_r

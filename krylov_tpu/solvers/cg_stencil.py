@@ -1,17 +1,18 @@
-"""Fused conjugate gradient for stencil operators (const- and
+"""Conjugate gradient on grid vectors for stencil operators (const- and
 variable-coefficient).
 
 Mathematically identical to :func:`krylov_tpu.cg` (same recurrence,
 division guards, explicit-residual double-check — reference:
-src/krylov/cg.py:155-217), but each iteration runs as two fused Pallas
-passes (:mod:`krylov_tpu.ops.pallas_stencil`):
+src/krylov/cg.py:155-217), specialised to unpreconditioned or
+Jacobi-preconditioned Euclidean CG on one grid-shaped ``(M, ny)``
+right-hand side.  Each iteration is
 
-  phase A: ``p = r + omega p``, ``Ap = A p``, partial ``<p, Ap>``
-  phase B: ``y += alpha p``, ``r -= alpha Ap``, partial ``<r, r>``
+  ``p = z + omega p``, ``Ap = A p``, ``<p, Ap>``;
+  ``y += alpha p``, ``r -= alpha Ap``, ``<r, M r>``
 
-cutting per-iteration HBM traffic from ~15N to ~10N words.  Unpreconditioned
-Euclidean CG on grid-shaped single-RHS vectors; falls back to the generic
-:func:`krylov_tpu.cg` when the operator/backend/arguments don't fit.
+with no operator wrappers or generic inner products in between, so XLA
+fuses each line into about one streaming pass (~15N words per iteration
+for the variable-coefficient operator, ~10N for the constant one).
 """
 
 from typing import NamedTuple, Optional
@@ -24,7 +25,7 @@ from .._info import Info
 from ..ops.stencil import ConstStencilOperator, GridStencilOperator
 
 
-class _FusedState(NamedTuple):
+class _StencilCGState(NamedTuple):
     y: jnp.ndarray  # solution increment (xk = x0 + y)
     r: jnp.ndarray
     p: jnp.ndarray
@@ -40,40 +41,16 @@ def cg_stencil(
     tol: float = 1e-5,
     atol: float = 1.0e-15,
     maxiter: Optional[int] = None,
-    fused: bool = False,
     M=None,
 ):
     """CG for :class:`ConstStencilOperator` / :class:`GridStencilOperator`
     on grid vectors.
 
-    ``fused=True`` opts into the two-pass fused Pallas iteration.
-    Measured on v5e at 16.7M rows (least-squares slope over maxiter,
-    marginal per-iteration), const-coefficient: 1137 us/iter = 1.06x of
-    the 10N-word streaming model at the 625 GB/s pipeline ceiling — i.e.
-    at the fused path's roofline — vs ~1500 us for the unfused
-    composition of the SpMV kernel with XLA vector ops.  The
-    variable-coefficient variant streams the (ndiag, M, ny) plane stack
-    through phase A; measured 1172 us/iter = the ~15N-word model at the
-    ~825 GB/s HBM ceiling, vs 1259 us unfused — a 1.07x marginal win,
-    NOT the naive 19N/15N = 1.27x: XLA fuses the unfused composition
-    (p-update into the matvec's operand stream, the axpy pair + rho
-    reduction into one pass) down to ~15.5N effective words, so the
-    fused kernels' remaining edge is the shared coefficient stream.
-    Both variants sit at their stream rooflines; the fused path also
-    amortizes the per-call halo-plane gather of the standalone SpMV over
-    the whole phase (the r/p planes are built by two strided slices and
-    the p-update is recomputed on the halo rows in-kernel).  The default
-    remains unfused for generality (general preconditioners, multi-RHS);
-    ``bench.py`` uses ``fused=True``.
-
     ``M="jacobi"`` (GridStencilOperator only) runs diagonally
     preconditioned CG with the same recurrence and resnorm convention as
     :func:`krylov_tpu.cg` with ``M=DiagonalOperator(1/diag)`` (resnorm is
-    ``sqrt(<r, M r>)``); the fused variant streams ``dinv`` as one extra
-    plane through each phase (~17N words/iter vs ~23N unfused).
+    ``sqrt(<r, M r>)``).
     """
-    from ..ops import pallas_stencil
-
     if isinstance(A, ConstStencilOperator):
         variant = "const"
     elif isinstance(A, GridStencilOperator):
@@ -90,18 +67,6 @@ def cg_stencil(
         raise ValueError("cg_stencil supports a single grid-shaped RHS")
     N = Mg * ny
     maxiter = N if maxiter is None else maxiter
-
-    if variant == "const":
-        row_offsets = tuple(bd[0] for bd in A.bands)
-        bands = A.bands
-    else:
-        row_offsets = A.row_offsets
-        bands = None
-    use_fused = fused and pallas_stencil.supports(b2.dtype, Mg, ny, row_offsets)
-    if variant == "grid":
-        # the var-coef fused kernel accumulates in the vector dtype; bf16
-        # CG iterations are numerically meaningless, so gate on f32
-        use_fused = use_fused and b2.dtype == jnp.float32
 
     if M is None:
         dinv2 = None
@@ -123,20 +88,16 @@ def cg_stencil(
     x02 = jnp.zeros_like(b2) if x0 is None else jnp.asarray(x0).reshape(Mg, ny)
     # x0 = 0 short-circuit: r0 = b - A@0 == b BITWISE (the stencil sums
     # c*0 = +0.0 exactly and b - 0.0 == b for every float including
-    # -0.0/inf/nan), so trajectories are unchanged.  Beyond skipping one
-    # matvec, this is a measured per-ITERATION win on TPU: a pallas
-    # matvec in the prologue whose output seeds the loop carry shifts
-    # XLA's buffer assignment for the whole while loop and cost ~300
-    # us/iter at 4096^2 (isolated A/B: identical loop bodies, prologue
-    # matvec present 1492 us/iter vs absent 1189).  initial_residual
-    # also keeps the dtype faithful for mixed-precision coefficients.
+    # -0.0/inf/nan), so trajectories are unchanged and one matvec is
+    # skipped.  initial_residual also keeps the dtype faithful for
+    # mixed-precision coefficients.
     from ._common import initial_residual
 
     r0 = initial_residual(A, b2, x02, x0 is None)
     rho0 = mnorm2(r0)
     resnorm0 = jnp.sqrt(rho0)
 
-    state0 = _FusedState(
+    state0 = _StencilCGState(
         y=jnp.zeros_like(b2),
         r=r0,
         p=jnp.zeros_like(b2),
@@ -145,45 +106,22 @@ def cg_stencil(
         resnorm=resnorm0,
     )
 
-    def step(s: _FusedState, criterion) -> _FusedState:
+    def step(s: _StencilCGState, criterion) -> _StencilCGState:
         omega = s.rho / jnp.where(s.rho_old != 0, s.rho_old, 1.0)
-        if use_fused and variant == "const":
-            p, Ap, pAp = pallas_stencil.cg_fused_phase_a(
-                omega, s.r, s.p, bands
-            )
-        elif use_fused and dinv2 is None:
-            p, Ap, pAp = pallas_stencil.cg_fused_phase_a_var(
-                omega, s.r, s.p, A.coeffs2d, A.row_offsets, A.col_offsets
-            )
-        elif use_fused:
-            p, Ap, pAp = pallas_stencil.cg_fused_phase_a_var_jac(
-                omega, s.r, s.p, A.coeffs2d, dinv2,
-                A.row_offsets, A.col_offsets,
-            )
-        else:
-            z = s.r if dinv2 is None else dinv2 * s.r
-            p = z + omega * s.p
-            Ap = A @ p
-            pAp = jnp.sum(p * Ap)
+        z = s.r if dinv2 is None else dinv2 * s.r
+        p = z + omega * s.p
+        Ap = A @ p
+        pAp = jnp.sum(p * Ap)
         alpha = s.rho / jnp.where(pAp != 0, pAp, 1.0)
-        if use_fused and dinv2 is None:
-            y, r, rho_new = pallas_stencil.cg_fused_phase_b(
-                alpha, s.y, s.r, p, Ap
-            )
-        elif use_fused:
-            y, r, rho_new = pallas_stencil.cg_fused_phase_b_jac(
-                alpha, s.y, s.r, p, Ap, dinv2
-            )
-        else:
-            y = s.y + alpha * p
-            r = s.r - alpha * Ap
-            rho_new = mnorm2(r)
-        return _FusedState(
+        y = s.y + alpha * p
+        r = s.r - alpha * Ap
+        rho_new = mnorm2(r)
+        return _StencilCGState(
             y=y, r=r, p=p, rho_old=s.rho, rho=rho_new,
             resnorm=jnp.sqrt(rho_new),
         )
 
-    def xk_of(s: _FusedState):
+    def xk_of(s: _StencilCGState):
         return x02 + s.y
 
     def explicit_resnorm(xk):

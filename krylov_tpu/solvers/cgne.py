@@ -33,8 +33,6 @@ class A_AH:
 
 def cgne(A, b, *args, **kwargs):
     A = as_operator(A)
-    if hasattr(A, "ensure_adjoint"):
-        A.ensure_adjoint()  # normal-equations solvers need the adjoint
     sol, info = cg(A_AH(A), b, *args, **kwargs)
 
     xk = A.rmatvec(info.xk)

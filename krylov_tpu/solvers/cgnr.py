@@ -31,6 +31,4 @@ class AH_A:
 
 def cgnr(A, b, *args, **kwargs):
     A = as_operator(A)
-    if hasattr(A, "ensure_adjoint"):
-        A.ensure_adjoint()  # normal-equations solvers need the adjoint
     return cg(AH_A(A), A.rmatvec(b), *args, **kwargs)

@@ -17,15 +17,9 @@ combination instead of k+1 dependent inner products.  Under
 allreduce count from O(k) to O(1); two passes (CGS2) keep MGS-level
 orthogonality (Giraud/Langou/Rozložník 2005).
 
-**TPU performance note.**  Single-chip, the default ``ortho="mgs"`` is
-now also the fastest: on the 1M-row nonsymmetric Poisson bench (TPU
-v5e, 26 iterations, identical convergence, BENCH_r05) the ladder is
-mgs 80 ms, householder 82 ms, cgs 120 ms.  (Round 4 measured mgs at
-257 ms and steered users to CGS2; that cost was the compiled driver's
-per-iteration ``lax.cond`` copying the ``(maxiter+1, N)`` basis buffer
-every step, fixed in round 5 — ``_driver.py::_run_while``.  The CGS
-sweep's extra basis combination pass is why it now trails single-chip.)
-SHARDED solves are a different trade: there MGS still pays k+1
+**Choosing ``ortho``.**  On one device the default ``ortho="mgs"`` does
+the least work per iteration; the CGS sweep adds a second pass over the
+basis (its combination step).  SHARDED solves are a different trade: there MGS still pays k+1
 DEPENDENT ``psum`` latencies per iteration while the batched-CGS sweep
 pays ONE — prefer ``ortho="cgs"`` under ``sharded_solve`` on real
 multi-chip meshes where allreduce latency dominates.
@@ -55,6 +49,7 @@ from ..arnoldi import ArnoldiCGS, ArnoldiHouseholder, ArnoldiMGS, padded_reflect
 from ..givens import apply_givens, givens
 from ..ops.triangular import multi_solve_triangular
 from ._common import initial_residual, preconditioner, setup
+from .. import _precision as prec
 
 
 def _num_operations(k):
@@ -121,8 +116,7 @@ def gmres(
 
     # default x0 = 0: r0 == b bitwise; skipping the matvec also keeps
     # the compiled prologue free of an operator kernel that would
-    # perturb XLA's while-loop buffer aliasing (docs/design.md
-    # "measured truth" note)
+    # perturb XLA's while-loop buffer aliasing
     r0 = initial_residual(A, b, x0, x0_default)
     Ml_r0 = Ml @ r0
     M_Ml_r0 = M @ Ml_r0
@@ -174,7 +168,7 @@ def _make_batch_inner(batch_inner, inner, inner_is_none):
     if batch_inner is not None:
         return batch_inner
     if inner_is_none:
-        return lambda Vb, w: jnp.einsum("kn...,n...->k...", jnp.conj(Vb), w)
+        return lambda Vb, w: prec.einsum("kn...,n...->k...", jnp.conj(Vb), w)
     return lambda Vb, w: jax.vmap(lambda v: inner(v, w))(Vb)
 
 
@@ -391,7 +385,7 @@ def _gmres_while(
             for _ in range(num_reorthos):
                 alphas = batch_inner(s.V, Av) * active
                 h = h + alphas
-                Av = Av - jnp.einsum("k...,kn...->n...", alphas, s.P)
+                Av = Av - prec.einsum("k...,kn...->n...", alphas, s.P)
         else:
 
             def mgs_body(j, carry):
@@ -426,7 +420,7 @@ def _gmres_while(
             active.reshape((K,) + (1,) * len(tail)), s.y[:K], jnp.zeros_like(s.y[:K])
         )
         yy = multi_solve_triangular(Rsq, yv)
-        yk = jnp.einsum("k...,kn...->n...", yy, s.V[:K])
+        yk = prec.einsum("k...,kn...->n...", yy, s.V[:K])
         return x0 + Mr @ yk
 
     method = Method(
@@ -557,7 +551,7 @@ def _gmres_while_householder(
             jnp.zeros_like(s.y[:K]),
         )
         yy = multi_solve_triangular(Rsq, yv)
-        yk = jnp.einsum("k...,kn...->n...", yy, s.V[:K])
+        yk = prec.einsum("k...,kn...->n...", yy, s.V[:K])
         return x0 + Mr @ yk
 
     method = Method(

@@ -70,8 +70,6 @@ def lsqr(
     """
     b = jnp.asarray(b)
     A = as_operator(A)
-    if hasattr(A, "ensure_adjoint"):
-        A.ensure_adjoint()
     m, n = A.shape
     assert b.shape[0] == m
     rhs_shape = b.shape[1:]

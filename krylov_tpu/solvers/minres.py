@@ -73,8 +73,7 @@ def minres(
 
     # default x0 = 0: r0 == b bitwise; skipping the matvec also keeps
     # the compiled prologue free of an operator kernel that would
-    # perturb XLA's while-loop buffer aliasing (docs/design.md
-    # "measured truth" note)
+    # perturb XLA's while-loop buffer aliasing
     r0 = initial_residual(A, b, x0, x0_default)
     Ml_r0 = Ml @ r0
     M_Ml_r0 = M @ Ml_r0

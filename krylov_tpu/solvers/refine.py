@@ -1,7 +1,7 @@
 """Mixed-precision iterative refinement.
 
-A TPU-native extension (no reference counterpart): run the inner Krylov
-solve in a cheap dtype (bf16 matvec and vectors — half the HBM traffic) and
+An extension with no reference counterpart: run the inner Krylov
+solve in a cheap dtype (bf16 matvec and vectors — half the memory traffic) and
 recover working-precision accuracy with an outer defect-correction loop:
 
     r_k = b - A x_k            (working precision)

@@ -13,7 +13,7 @@ Triangular sweeps, by operator type:
 * :class:`~krylov_tpu.ops.stencil.GridStencilOperator` — scalable scan
   sweeps (ops/triangular.py: ``lax.scan`` over grid rows, within-row
   first-order recurrence via ``associative_scan``), no dense
-  materialization at any size — the TPU substitute for scipy's sequential
+  materialization at any size — the data-parallel substitute for scipy's sequential
   ``spsolve_triangular``;
 * other sparse operators — materialized densely below ``_DENSE_SWEEP_MAX``
   rows (small-problem parity path); above that, the level-scheduled sweep
@@ -113,8 +113,8 @@ def _dense_matrix(A):
 def _sparse_for_levels(A):
     """Return a host scipy CSR when A is sparse and too large to densify.
 
-    Checked on the ORIGINAL input (before ``as_operator`` routing — on TPU
-    a large scipy matrix becomes a PETOperator, which carries no CSR
+    Checked on the ORIGINAL input, before ``as_operator`` routing (which
+    may turn a block-structured matrix into a BSROperator, with no CSR
     arrays to extract a triangle from)."""
     import scipy.sparse
 
@@ -192,8 +192,8 @@ def _is_grid_stencil(A):
 def _grid_sweep_update(A, omega_diag, lower):
     """Triangular-sweep update for GridStencilOperator at any scale.
 
-    Uses the scan/associative-scan sweeps (ops/triangular.py) — the TPU
-    substitute for scipy's sequential spsolve_triangular; works on flat,
+    Uses the scan/associative-scan sweeps (ops/triangular.py) — the
+    data-parallel substitute for scipy's sequential spsolve_triangular; works on flat,
     grid-shaped, and multi-RHS vectors.  For a row-partitioned shard the
     sweep is local (block-Jacobi boundaries between shards).
     """

@@ -33,9 +33,35 @@ def test_timed_solve_and_roofline_report():
         krylov_tpu.cg, A, b, tol=1e-10, maxiter=200
     )
     assert info.success and secs > 0
-    rep = profiling.roofline_report(A, 1e-3)
+    rep = profiling.roofline_report(A, 1e-3, device="NVIDIA H100 80GB HBM3")
     assert rep["bytes_ideal"] == 7 * 64 * 8
+    assert rep["peak_gbps"] == 3350.0
+    assert rep["fraction_of_roofline"] == rep["achieved_gbps"] / 3350.0
     assert rep["nnz_per_s"] > 0
+
+
+def test_peak_table_h100_row():
+    """The one peak table: NVIDIA's published H100 SXM figures, keyed by
+    the ``device_kind`` JAX reports, with their source."""
+    row = profiling.device_peaks("NVIDIA H100 80GB HBM3")
+    assert row["hbm_gbps"] == 3350.0
+    assert row["bf16_tflops"] == 989.0
+    assert row["tf32_tflops"] == 495.0
+    assert row["f32_tflops"] == 67.0
+    assert "NVIDIA" in row["source"]
+    assert profiling.peak_gbps("NVIDIA H100 80GB HBM3") == 3350.0
+
+
+@pytest.mark.parametrize("kind", ["cpu", "Tesla V100-SXM2-16GB", "NVIDIA H100"])
+def test_peak_table_unknown_device_raises(kind):
+    """A device without a sourced row is an error, never a default — the
+    CPU included (its kind is what the default device reports here)."""
+    with pytest.raises(KeyError, match="no published peaks"):
+        profiling.device_peaks(kind)
+    with pytest.raises(KeyError):
+        profiling.roofline_report(stencil.poisson_2d(4, 4), 1e-3, device=kind)
+    with pytest.raises(KeyError):
+        profiling.peak_gbps()  # the CPU device this suite runs on
 
 
 def test_checkpoint_resume_via_x0():

@@ -1,5 +1,4 @@
-"""BSR operator: ELL-padded block-sparse SpMM (MXU kernel on TPU,
-gather+einsum contraction elsewhere)."""
+"""BSR operator: ELL-padded block-sparse SpMM (gather + batched einsum)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -75,26 +74,27 @@ def test_cg_on_bsr_multi_rhs():
     np.testing.assert_allclose(np.asarray(sol), x_ref, atol=1e-8)
 
 
-def test_bsr_pallas_kernel_interpret_mode():
-    """The actual Pallas SpMM kernel in interpreter mode."""
-    from krylov_tpu.ops.pallas_bsr import bsr_spmm
-
-    dense = _random_bsr(nbrows=4, nbcols=4, R=8, C=8, seed=7)
+@pytest.mark.parametrize(
+    "R,C,k", [(8, 8, 4), (16, 16, 1), (4, 8, 3), (32, 32, 16)]
+)
+def test_bsr_spmm_f32_block_shapes_match_dense(R, C, k):
+    """The gather + batched-einsum SpMM in f32 over square, rectangular
+    and single-column shapes, against the dense f64 product (full f32
+    precision: no reduced-precision contraction)."""
+    dense = _random_bsr(nbrows=4, nbcols=4, R=R, C=C, seed=7)
     A = BSROperator.from_scipy(
-        scipy.sparse.csr_matrix(dense), blocksize=(8, 8)
+        scipy.sparse.csr_matrix(dense.astype(np.float32)), blocksize=(R, C)
     )
     rng = np.random.default_rng(8)
-    X = jnp.asarray(rng.standard_normal((32, 4)), jnp.float32)
-    got = bsr_spmm(
-        jnp.asarray(A.data, jnp.float32), A.cols, X, interpret=True
-    )
-    np.testing.assert_allclose(
-        np.asarray(got), dense @ np.asarray(X), rtol=1e-5, atol=1e-5
-    )
+    X = rng.standard_normal((4 * C, k)).astype(np.float32)
+    got = np.asarray(A @ jnp.asarray(X))
+    assert got.dtype == np.float32
+    want = dense.astype(np.float32).astype(np.float64) @ X
+    np.testing.assert_allclose(got, want, atol=1e-5 * (1 + np.abs(want).max()))
 
 
 def test_as_operator_routes_block_structured_to_bsr():
-    """Block-structured scipy matrices auto-route to the MXU BSR path."""
+    """Block-structured scipy matrices auto-route to the BSR path."""
     import scipy.sparse
 
     from krylov_tpu._operators import as_operator

@@ -107,20 +107,19 @@ def test_diffable_inside_jit():
     assert np.isfinite(float(v)) and np.all(np.isfinite(np.asarray(g)))
 
 
-def test_grad_through_lazy_pet_operator():
-    """diffable.solve must materialize a lazy PET adjoint before the
-    pytree boundary: the backward pass calls rmatvec on the
-    RECONSTRUCTED operator (r3 review finding — flatten no longer builds
-    the adjoint implicitly)."""
+def test_grad_through_nonsymmetric_csr_operator():
+    """diffable.solve on a NON-symmetric CSR operator: the backward pass
+    solves with the adjoint through ``rmatvec`` on the operator rebuilt
+    from its pytree leaves (integer index leaves get float0 cotangents)."""
     import scipy.sparse
 
-    from krylov_tpu.ops.pallas_spmv import PETOperator
+    from krylov_tpu.ops.sparse import CSROperator
 
     n = 96
     sp = scipy.sparse.diags(
         [-1.0, 3.0, -0.5], [-1, 0, 1], shape=(n, n), format="csr"
     ).astype(np.float32)  # NON-symmetric: the adjoint really differs
-    A = PETOperator.from_scipy(sp, with_rmatvec="lazy", interpret=True)
+    A = CSROperator.from_scipy(sp)
     b = jnp.asarray(np.random.default_rng(5).standard_normal(n), jnp.float32)
     g_out = jnp.asarray(
         np.random.default_rng(6).standard_normal(n), jnp.float32

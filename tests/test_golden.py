@@ -1,7 +1,7 @@
 """Golden-trajectory parity tests.
 
 Replays every fixture in tests/fixtures/golden.json (generated by running the
-reference library, see tools/gen_golden.py) against the TPU build and checks:
+reference library, see tools/gen_golden.py) against this library and checks:
 
 * identical success flag and step count,
 * entry-wise residual-history match within 1e-11 * (1 + ref) — the tolerance

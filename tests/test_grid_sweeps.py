@@ -1,5 +1,5 @@
 """Grid-stencil triangular sweeps: GS/SOR/SSOR at any scale without dense
-materialization (the TPU substitute for scipy's spsolve_triangular —
+materialization (the data-parallel substitute for scipy's spsolve_triangular —
 SURVEY.md §2.2 native-crossing table)."""
 
 import jax.numpy as jnp

@@ -238,104 +238,32 @@ def test_mg_odd_dims_stop_coarsening():
     assert info.success
 
 
-def test_jacobi_sweep_kernel_interpret_mode():
-    """The fused damped-Jacobi sweep kernel (multigrid smoothing hot op)
-    in Pallas interpreter mode vs the plain composition, both modes:
-    update (z + w*(r - A z)) and residual (r - A z)."""
-    import functools
+def _mg_case(kind):
+    if kind == "const":
+        A = stencil.poisson_2d_const(16, 8, dtype=np.float64)
+    else:  # Galerkin hierarchy on a variable-coefficient operator
+        a = 0.5 + np.random.default_rng(3).random((16, 8))
+        A = stencil.diffusion_2d(a, dtype=np.float64)
+    return A, MultigridPreconditioner(A)
 
-    import jax
-    from jax.experimental import pallas as pl
 
-    from krylov_tpu.ops import pallas_stencil as ps
-    from krylov_tpu.ops import stencil
-
-    A = stencil.poisson_2d_const(16, 8, dtype=np.float32)
-    M, ny = A.grid
+@pytest.mark.parametrize("iters", [1, 3])
+@pytest.mark.parametrize("kind", ["const", "galerkin"])
+def test_mg_smoothing_matches_explicit_composition(kind, iters):
+    """Level-0 smoothing is ``iters`` damped-Jacobi sweeps
+    ``z <- z + w (r - A z)`` with the operator applied as the scipy matrix;
+    the weight is omega/diag (a scalar on constant-coefficient levels, a
+    per-point field on Galerkin levels)."""
+    A, M = _mg_case(kind)
+    sp = A.toscipy()
     rng = np.random.default_rng(5)
-    z = jnp.asarray(rng.standard_normal((M, ny)), jnp.float32)
-    r = jnp.asarray(rng.standard_normal((M, ny)), jnp.float32)
-    w = jnp.float32(0.2)
+    shape = M._nd_shapes[0]
+    z0 = rng.standard_normal(shape)
+    r = rng.standard_normal(shape)
+    w = (M.omega / sp.diagonal()).reshape(shape)
 
-    h, tm, nb = 1, 8, 2
-    zt, zb = ps._halo_planes(z, nb, tm, h)
-    ws = jnp.asarray(w).reshape(1, 1)
-    for update in (True, False):
-        kern = functools.partial(
-            ps._jacobi_sweep_kernel, bands=A.kernel_bands, h=h, tm=tm,
-            ny=ny, update=update,
-        )
-        out = pl.pallas_call(
-            kern,
-            grid=(nb,),
-            in_specs=[
-                pl.BlockSpec((1, 1), lambda i: (0, 0)),
-                pl.BlockSpec((tm, ny), lambda i: (i, 0)),
-                pl.BlockSpec((tm, ny), lambda i: (i, 0)),
-                pl.BlockSpec((1, h, ny), lambda i: (i, 0, 0)),
-                pl.BlockSpec((1, h, ny), lambda i: (i, 0, 0)),
-            ],
-            out_specs=pl.BlockSpec((tm, ny), lambda i: (i, 0)),
-            out_shape=jax.ShapeDtypeStruct((M, ny), jnp.float32),
-            interpret=True,
-        )(ws, z, r, zt, zb)
-        ref = (z + w * (r - (A @ z))) if update else (r - (A @ z))
-        np.testing.assert_allclose(
-            np.asarray(out), np.asarray(ref), rtol=1e-5, atol=1e-5
-        )
-
-
-def test_jacobi_sweep_var_kernel_interpret_mode():
-    """Variable-coefficient fused sweep kernel (Galerkin smoothing) in
-    interpreter mode vs the operator composition, both modes."""
-    import functools
-
-    import jax
-    from jax.experimental import pallas as pl
-
-    from krylov_tpu.ops import pallas_stencil as ps
-    from krylov_tpu.ops import stencil
-
-    A = stencil.poisson_2d(16, 8, dtype=np.float32)
-    M, ny = A.grid
-    rng = np.random.default_rng(9)
-    z = jnp.asarray(rng.standard_normal((M, ny)), jnp.float32)
-    r = jnp.asarray(rng.standard_normal((M, ny)), jnp.float32)
-    d = np.asarray(A.diagonal()).reshape(M, ny)
-    w = jnp.asarray(0.8 / d, jnp.float32)
-
-    h, tm, nb = 1, 8, 2
-    zt, zb = ps._halo_planes(z, nb, tm, h)
-    blk = pl.BlockSpec((tm, ny), lambda i: (i, 0))
-    halo = pl.BlockSpec((1, h, ny), lambda i: (i, 0, 0))
-    c_spec = pl.BlockSpec((5, tm, ny), lambda i: (0, i, 0))
-    for update in (True, False):
-        kern = functools.partial(
-            ps._jacobi_sweep_var_kernel, row_offsets=A.row_offsets,
-            col_offsets=A.col_offsets, h=h, tm=tm, ny=ny, update=update,
-        )
-        operands = (
-            (jnp.asarray(A.coeffs2d), w, z, r, zt, zb)
-            if update
-            else (jnp.asarray(A.coeffs2d), z, r, zt, zb)
-        )
-        in_specs = (
-            [c_spec, blk, blk, blk, halo, halo]
-            if update
-            else [c_spec, blk, blk, halo, halo]
-        )
-        out = pl.pallas_call(
-            kern,
-            grid=(nb,),
-            in_specs=in_specs,
-            out_specs=blk,
-            out_shape=jax.ShapeDtypeStruct((M, ny), jnp.float32),
-            interpret=True,
-        )(*operands)
-        Az = np.asarray(A @ z)
-        ref = (
-            np.asarray(z) + np.asarray(w) * (np.asarray(r) - Az)
-            if update
-            else np.asarray(r) - Az
-        )
-        np.testing.assert_allclose(np.asarray(out), ref, rtol=1e-5, atol=1e-5)
+    z = z0.copy()
+    for _ in range(iters):
+        z = z + w * (r - (sp @ z.ravel()).reshape(shape))
+    got = M._smooth(0, jnp.asarray(z0), jnp.asarray(r), iters)
+    np.testing.assert_allclose(np.asarray(got), z, rtol=1e-12, atol=1e-12)

@@ -4,7 +4,6 @@ Every native helper in ``krylov_tpu/csrc`` ships with its numpy
 implementation as fallback AND ground truth (ops/_native.py docstring);
 these tests pin that contract by running both paths on the same inputs:
 
-* PET builder bit-parity lives in test_pallas_spmv.py;
 * ILU(0) numeric phase (csrc/ilu0.cpp) — f64 closeness + the complex
   bypass (round-3 verdict item 7);
 * AMG pairwise aggregation (csrc/amg_agg.cpp) — exact label equality.
@@ -22,8 +21,6 @@ from krylov_tpu import ilu as ilumod
 
 
 def _reset_native_state():
-    _native._tried = False
-    _native._lib = None
     _native._ilu_tried = False
     _native._ilu_lib = None
     _native._agg_tried = False
@@ -59,8 +56,7 @@ def _test_matrices():
 
 def test_ilu0_native_matches_numpy():
     """csrc/ilu0.cpp numeric phase vs the numpy IKJ pass: same factored
-    data at f64 tightness on the same canonical CSR (round-3 verdict 7,
-    mirroring the PET builder's bit-parity test)."""
+    data at f64 tightness on the same canonical CSR (round-3 verdict 7)."""
     for name, A in _test_matrices().items():
         A = A.tocsr().astype(np.float64)
         A.sort_indices()

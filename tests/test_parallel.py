@@ -3,7 +3,7 @@
 The fake-backend mechanism the reference never needed (SURVEY.md §4): the
 conftest forces ``xla_force_host_platform_device_count=8``, so the
 row-partitioned SpMV / halo-exchange / psum paths run as a real 8-way SPMD
-program without TPU hardware.  Numerical ground truth is the single-device
+program without accelerator hardware.  Numerical ground truth is the single-device
 solver on the same system.
 """
 
@@ -579,9 +579,10 @@ def test_sharded_bsr_solve_and_rmatvec():
     )
 
 
-def test_sharded_pet_solve_matches_single_device():
-    """General-sparsity PET partition sharded over the mesh (all-gather
-    mode): CG matches single-device; rmatvec matches the adjoint."""
+def test_sharded_f32_csr_solve_matches_single_device():
+    """General-sparsity f32 CSR sharded over the mesh (all-gather mode for
+    this scattered pattern): CG matches the single-device iteration count;
+    the sharded rmatvec matches the scipy adjoint."""
     rng = np.random.default_rng(70)
     n = 1024
     rows = np.repeat(np.arange(1, n), 3)
@@ -594,67 +595,59 @@ def test_sharded_pet_solve_matches_single_device():
     A.setdiag(4.0 + rng.random(n))
     A.sum_duplicates()
     A = A.astype(np.float32)
-    part = parallel.partition_pet(A, 8)
-    assert 0 < part["fill"] <= 1
+    part = parallel.partition_csr(A, 8)
+    assert part["mode"] == "gather"
 
     b = jnp.asarray(rng.standard_normal(n), jnp.float32)
     sol_ref, info_ref = krylov_tpu.cg(A.astype(np.float64), b.astype(jnp.float64),
                                       tol=1e-4, maxiter=200)
     sol, info = parallel.sharded_solve(
-        krylov_tpu.cg, part, b, mesh=_mesh(), tol=1e-4, maxiter=200
+        krylov_tpu.cg, A, b, mesh=_mesh(), tol=1e-4, maxiter=200
     )
     assert info.success
+    assert np.asarray(sol).dtype == np.float32
     r = np.asarray(b) - A @ np.asarray(sol)
     assert np.linalg.norm(r) <= 1e-3 * (1 + np.linalg.norm(np.asarray(b)))
     assert info.numsteps == info_ref.numsteps
 
     # sharded rmatvec against the scipy adjoint
-    mesh = _mesh()
     P = jax.sharding.PartitionSpec
     x = jnp.asarray(rng.standard_normal(n), jnp.float32)
-    keys = ["ent", "dat", "meta", "meta_v",
-            "t_ent", "t_dat", "t_meta", "t_meta_v"]
-
-    def run(*arrs):
-        local = {k: a[0] for k, a in zip(keys, arrs[:-1])}
-        return parallel.ShardedPETOperator(
-            local, part["geom"], part["t_geom"], part["n_local"], n
-        ).rmatvec(arrs[-1])
-
     fn = jax.shard_map(
-        run,
-        mesh=mesh,
-        in_specs=tuple(
-            P("rows", *([None] * (part[k].ndim - 1))) for k in keys
-        ) + (P("rows"),),
+        lambda d, c, r, v: parallel.ShardedCSROperator(
+            d[0], c[0], r[0], part["n_local"], part["halo"], part["mode"]
+        ).rmatvec(v),
+        mesh=_mesh(),
+        in_specs=(P("rows", None),) * 3 + (P("rows"),),
         out_specs=P("rows"),
         check_vma=False,
     )
-    got = fn(*[part[k] for k in keys], x)
+    got = fn(
+        jnp.asarray(part["data"]), jnp.asarray(part["col"]),
+        jnp.asarray(part["row"]), x,
+    )
     want = A.T.conj() @ np.asarray(x)
     np.testing.assert_allclose(np.asarray(got), want, atol=2e-4)
 
 
-def test_sharded_pet_multi_rhs():
-    """Blocked RHS through the sharded PET operator: after one
-    all-gather the local slab runs the SpMM kernel, which streams each
-    chunk's index/metadata once for the whole column block."""
+@pytest.mark.parametrize("k", [2, 3])
+def test_sharded_f32_csr_multi_rhs(k):
+    """Blocked RHS through the sharded CSR operator: every column
+    converges and keeps its own residual."""
     rng = np.random.default_rng(71)
     n = 512
     sp = scipy.sparse.diags(
         [-1.0, 3.1, -1.0], [-1, 0, 1], shape=(n, n), format="csr"
     ).astype(np.float32)
-    part = parallel.partition_pet(sp, 8)
-    for k in (2, 3):
-        B = jnp.asarray(rng.standard_normal((n, k)), jnp.float32)
-        sol, info = parallel.sharded_solve(
-            krylov_tpu.cg, part, B, mesh=_mesh(), tol=1e-4, maxiter=300
-        )
-        assert info.success
-        R = np.asarray(B) - sp @ np.asarray(sol)
-        assert np.max(np.linalg.norm(R, axis=0)) <= 1e-3 * (
-            1 + np.max(np.linalg.norm(np.asarray(B), axis=0))
-        )
+    B = jnp.asarray(rng.standard_normal((n, k)), jnp.float32)
+    sol, info = parallel.sharded_solve(
+        krylov_tpu.cg, sp, B, mesh=_mesh(), tol=1e-4, maxiter=300
+    )
+    assert info.success
+    R = np.asarray(B) - sp @ np.asarray(sol)
+    assert np.max(np.linalg.norm(R, axis=0)) <= 1e-3 * (
+        1 + np.max(np.linalg.norm(np.asarray(B), axis=0))
+    )
 
 
 def test_sharded_chebyshev_polynomial_preconditioner():
@@ -1019,15 +1012,14 @@ def test_sharded_qmr_jacobi_matches_single_device():
                                atol=1e-7)
 
 
-def test_sharded_bicgstab_over_pet_partition():
-    """BiCGSTAB over the general-sparsity sharded PET partition."""
+def test_sharded_bicgstab_over_f32_csr():
+    """BiCGSTAB over the general-sparsity sharded f32 CSR operator."""
     rng = np.random.default_rng(97)
     n = 512
     sp = _spd_csr(n, rng, density=0.01).astype(np.float32)
     b = jnp.asarray(rng.standard_normal(n), jnp.float32)
-    part = parallel.partition_pet(sp, 8)
     sol, info = parallel.sharded_solve(
-        krylov_tpu.bicgstab, part, b, mesh=_mesh(), tol=1e-4, maxiter=300
+        krylov_tpu.bicgstab, sp, b, mesh=_mesh(), tol=1e-4, maxiter=300
     )
     assert info.success
     r = np.asarray(b) - sp @ np.asarray(sol)
@@ -1080,20 +1072,18 @@ def test_sharded_cg_ssor_smoother_spd():
     assert info.numsteps < info_np.numsteps
 
 
-def test_sharded_pet_prime_n_pads_to_shards():
-    """Prime-sized N through the PET partition: partition_pet zero-pads
-    rows/columns to the shard multiple and sharded_solve pads the
-    vectors, so general sparsity needs no divisibility either."""
+def test_sharded_f32_csr_prime_n_pads_to_shards():
+    """Prime-sized N through the f32 CSR partition: partition_csr pads
+    with unit-diagonal rows to the shard multiple and sharded_solve pads
+    the vectors, so general sparsity needs no divisibility either."""
     rng = np.random.default_rng(101)
     n = 509
     sp = scipy.sparse.diags(
         [-1.0, 3.3, -1.0], [-1, 0, 1], shape=(n, n), format="csr"
     ).astype(np.float32)
-    part = parallel.partition_pet(sp, 8)
-    assert part["shape"][0] % 8 == 0
     b = jnp.asarray(rng.standard_normal(n), jnp.float32)
     sol, info = parallel.sharded_solve(
-        krylov_tpu.cg, part, b, mesh=_mesh(), tol=1e-4, maxiter=300
+        krylov_tpu.cg, sp, b, mesh=_mesh(), tol=1e-4, maxiter=300
     )
     assert info.success
     assert sol.shape == (n,)
@@ -1101,18 +1091,16 @@ def test_sharded_pet_prime_n_pads_to_shards():
     assert np.linalg.norm(r) <= 1e-3 * (1 + np.linalg.norm(np.asarray(b)))
 
 
-def test_sharded_pet_rcm_reorder_matches_user_order():
-    """partition_pet(reorder="rcm") solves in the bandwidth-reduced order
-    (one vector permutation per solve, no per-iteration gathers) and the
-    returned iterate is in USER order; fill improves on a scrambled
-    matrix and the trajectory matches the unreordered sharded solve
-    step-for-step (permutation-invariant inner products)."""
+def test_sharded_f32_csr_rcm_reorder_matches_user_order():
+    """sharded_solve(reorder="rcm") on a scrambled f32 CSR matrix solves in
+    the bandwidth-reduced order and returns the iterate in USER order;
+    the trajectory matches the unreordered sharded solve step-for-step
+    (permutation-invariant inner products), and a Jacobi ``M_diag`` given
+    in user order is permuted with ``b``."""
     rng = np.random.default_rng(113)
-    # big enough that each shard needs multiple chunks (at tiny sizes the
-    # one-chunk-per-group minimum quantizes away any fill difference)
-    n = 65536
+    n = 4096
     base = scipy.sparse.diags(
-        [-1.0, -0.5, 3.6, -0.5, -1.0], [-256, -1, 0, 1, 256],
+        [-1.0, -0.5, 3.6, -0.5, -1.0], [-64, -1, 0, 1, 64],
         shape=(n, n), format="csr",
     )
     base = base + scipy.sparse.diags(0.3 * rng.random(n))
@@ -1120,16 +1108,12 @@ def test_sharded_pet_rcm_reorder_matches_user_order():
     sp = base[p][:, p].tocsr().astype(np.float32)  # scrambled SPD
     b = jnp.asarray(rng.standard_normal(n), jnp.float32)
 
-    part0 = parallel.partition_pet(sp, 8)
-    part1 = parallel.partition_pet(sp, 8, reorder="rcm")
-    assert part1["perm"] is not None
-    assert part1["fill"] > 2 * part0["fill"], (part0["fill"], part1["fill"])
-
     sol0, info0 = parallel.sharded_solve(
-        krylov_tpu.cg, part0, b, mesh=_mesh(), tol=1e-4, maxiter=300
+        krylov_tpu.cg, sp, b, mesh=_mesh(), tol=1e-4, maxiter=300
     )
     sol1, info1 = parallel.sharded_solve(
-        krylov_tpu.cg, part1, b, mesh=_mesh(), tol=1e-4, maxiter=300
+        krylov_tpu.cg, sp, b, mesh=_mesh(), tol=1e-4, maxiter=300,
+        reorder="rcm",
     )
     assert info1.success
     assert info1.numsteps == info0.numsteps
@@ -1143,11 +1127,10 @@ def test_sharded_pet_rcm_reorder_matches_user_order():
         info1.resnorms[:m], info0.resnorms[:m], rtol=2e-3
     )
 
-    # Jacobi M_diag is given in user order and must be permuted with b
     Md = 1.0 / np.asarray(sp.diagonal())
     solm, infom = parallel.sharded_solve(
-        krylov_tpu.cg, part1, b, mesh=_mesh(), M_diag=Md,
-        tol=1e-4, maxiter=300,
+        krylov_tpu.cg, sp, b, mesh=_mesh(), M_diag=Md,
+        tol=1e-4, maxiter=300, reorder="rcm",
     )
     assert infom.success
     rm = np.asarray(b) - sp @ np.asarray(solm)
@@ -1171,7 +1154,7 @@ def test_sharded_csr_reorder_flips_gather_to_halo():
     # scrambled: columns land far from the diagonal -> gather mode
     part_scr = parallel.partition_csr(sp, 8)
     assert part_scr["mode"] == "gather"
-    from krylov_tpu.ops.pallas_spmv import rcm_permutation
+    from krylov_tpu.ops.reorder import rcm_permutation
 
     perm = rcm_permutation(sp)
     part_rcm = parallel.partition_csr(sp[perm][:, perm].tocsr(), 8)

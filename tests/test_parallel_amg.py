@@ -117,19 +117,19 @@ def test_amg_partition_validation():
         partition_amg(A, 8, smoother="sor")
 
 
-def test_amg_over_pet_partition_fine_level():
+def test_amg_over_f32_csr_operator_fine_level():
     """The cycle's fine-level smoother is whatever operator the solve
-    shards — here the PET route (f32), whose padded rows are zero rows
-    rather than AMG's unit-diagonal rows; both keep padded entries at
-    exactly zero, so the combination is consistent."""
-    from krylov_tpu.parallel import partition_pet
+    shards — here a device CSR operator in f32, partitioned by the solve
+    itself; both paddings keep padded entries at exactly zero, so the
+    combination is consistent."""
+    from krylov_tpu.ops.sparse import CSROperator
 
     A32 = A.astype(np.float32)
-    pet = partition_pet(A32, 8)
+    op = CSROperator.from_scipy(A32)
     part = partition_amg(A32, 8)
     b32 = B1.astype(np.float32)
     sol, info = sharded_solve(
-        krylov_tpu.cg, pet, b32, mesh=make_mesh(8), tol=1e-4,
+        krylov_tpu.cg, op, b32, mesh=make_mesh(8), tol=1e-4,
         M_partition=part,
     )
     assert info.success

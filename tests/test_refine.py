@@ -67,15 +67,13 @@ def test_refine_accepts_backend_kwarg():
     assert info.success
 
 
-def test_refine_with_bf16_pet_inner_operator():
+def test_refine_with_bf16_csr_inner_operator():
     """The intended production pairing: f32 residuals against the exact
-    operator, inner solves through the bf16 PET kernel mode (3-byte
-    value stream, single-pass selection/routing — see
-    test_pallas_spmv.py::test_pet_bf16_data_stream); the defect
+    operator, inner solves through a CSR operator whose values are stored
+    in bf16 (half the value stream; products promote to f32); the defect
     correction recovers f32-level accuracy."""
     import scipy.sparse
 
-    from krylov_tpu.ops.pallas_spmv import PETOperator
     from krylov_tpu.ops.sparse import CSROperator
 
     n_side = 40
@@ -85,8 +83,9 @@ def test_refine_with_bf16_pet_inner_operator():
         shape=(n, n), format="csr",
     ).astype(np.float32)
     A = CSROperator.from_scipy(sp)
-    A16 = PETOperator.from_scipy(
-        sp, interpret=True, data_dtype=jnp.bfloat16, with_rmatvec=False
+    A16 = CSROperator(
+        A.data.astype(jnp.bfloat16), A.indices, A.indptr, A.shape,
+        row_ids=A.row_ids,
     )
     b = np.random.default_rng(0).standard_normal(n).astype(np.float32)
     sol, info = krylov_tpu.refine(

@@ -4,7 +4,7 @@ library at /root/reference (numerical ground truth for parity tests).
 The fixtures record, for every (solver, problem, option-set): the residual
 history, success flag, step count, and solution — the same quantities the
 reference's own regression tests pin (reference: tests/test_*.py golden
-tables).  Our test suite then checks the TPU build against these within the
+tables).  Our test suite then checks this library against these within the
 reference tolerances.
 
 Run:  python tools/gen_golden.py   ->  tests/fixtures/golden.json
